@@ -1,0 +1,19 @@
+"""music2midi_tpu_torch: the PyTorch/CUDA port of music2midi_tpu.
+
+Song -> MIDI piano cover on an NVIDIA Hopper card.  The JAX package
+``music2midi_tpu`` is the reference this package is held against in the
+tests; this package imports nothing of it, nor JAX, nor yaml.
+
+Layering follows the JAX package:
+  config        — config tree (defaults as a dict) and resolve_config
+  weights       — npz checkpoint loader, JAX param tree -> state_dict
+  ops           — log-mel (plain + CUDA kernel), device detokenizer
+  models        — T5 encoder-decoder, int8 KV decode step
+  infer         — greedy decode loop, whole-song Music2MIDI pipeline
+  tokenizer     — MIDI notes <-> 400-token event vocabulary
+  midi / audio  — SMF and WAV I/O, synthesis, resampling
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,302 @@
+"""Whole-song inference: audio file or waveform -> MIDI piano cover.
+
+Port of ``music2midi_tpu/infer/pipeline.py`` (``Music2MIDI``) for the
+single-song serving path, ``generate`` -> ``sample_notes``:
+
+  * the song is zero-padded to a multiple of the 3-s window and reshaped
+    to a (num_chunks, 48000) batch; batches are padded up to a bucket size
+    (8, 16, 32, 64, 128), capped by ``inference.batch_size``;
+  * per batch, on the device: int16 wave transport (serving mode) ->
+    log-mel -> conditioning prepend -> encoder -> greedy decode (int8
+    self- and cross-KV in serving mode) -> detokenize;
+  * the host trims the rows and stitches the chunks in token time.
+
+Two modes, as in the JAX package: ``dtype=torch.float32`` is the parity
+mode (``torch.fft`` mel, no quantization); ``dtype=torch.bfloat16`` is the
+serving mode (the hand-written CUDA mel kernel on a CUDA device, int8 KV).
+
+Everything runs on ``device`` (``cuda`` unless the caller passes
+``device="cpu"``); no threads are started.  Not ported yet: the batched
+``generate_batch`` server path, ``from_torch_checkpoint``, sampling
+decode, input dither.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from .. import audio
+from ..config import ConfigNode, resolve_config
+from ..midi import MidiFile
+from ..models.t5 import (
+    T5Config,
+    T5Model,
+    conditioning_prepend,
+    encode,
+    init_params,
+    t5_config_from,
+)
+from ..ops.detokenize import detokenize_to_host
+from ..ops.mel import (
+    LogMelConfig,
+    log_mel_config_from,
+    log_mel_spectrogram,
+    log_mel_spectrogram_fast,
+)
+from ..tokenizer import MidiTokenizer
+from ..utils import numpy_to_midi
+from ..weights import load_npz
+from .decode import DecodeConfig, generate_tokens
+
+_BUCKET_SIZES = (8, 16, 32, 64, 128)
+
+
+def _bucket(n: int, cap: int) -> int:
+    for b in _BUCKET_SIZES:
+        if n <= b and b <= cap:
+            return b
+    return cap
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` by default; without a card only an explicit CPU device
+    is accepted."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available: pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+class Music2MIDI:
+    """Song -> MIDI inference engine.
+
+    Example:
+        model = Music2MIDI.from_npz("checkpoints/model_of_record.npz",
+                                    dtype=torch.bfloat16)
+        model.generate(audio_path="song.wav").write("cover.mid")
+    """
+
+    def __init__(
+        self,
+        params: Dict[str, Union[torch.Tensor, np.ndarray]],
+        config: Optional[Union[ConfigNode, dict]] = None,
+        dtype: torch.dtype = torch.float32,
+        decode_max_length: int = 1024,
+        device_detokenize: bool = True,
+        device=None,
+    ):
+        """params: a flat state_dict (``weights.load_npz``,
+        ``weights.params_from_jax`` or ``models.t5.init_params``)."""
+        self.device = resolve_device(device)
+        self.config = resolve_config(config)
+        self.t5_config: T5Config = t5_config_from(self.config, dtype=dtype)
+        self.mel_config: LogMelConfig = log_mel_config_from(self.config)
+        self.tokenizer = MidiTokenizer(self.config)
+        sd = {k: torch.as_tensor(v) for k, v in params.items()}
+        self.model = T5Model.from_state_dict(sd, self.t5_config).to(self.device)
+        self.decode_max_length = decode_max_length
+        self.device_detokenize = device_detokenize
+        self.num_conditioning = len(self.config.conditioning)
+        # per batch of the last call: {"batch_width", "real_rows", "steps"
+        # (decode steps run = longest row), "tokens_real", "row_steps"}
+        self.last_decode_stats: List[dict] = []
+
+    # ------------------------------------------------------------------ #
+    # constructors                                                        #
+    # ------------------------------------------------------------------ #
+
+    @classmethod
+    def from_npz(cls, path: Union[str, Path],
+                 config: Optional[Union[ConfigNode, dict]] = None,
+                 **kw) -> "Music2MIDI":
+        """Load a single-file npz export (the checkpoint of record)."""
+        sd, saved_cfg = load_npz(path)
+        return cls(sd, config if config is not None else saved_cfg, **kw)
+
+    @classmethod
+    def from_random(cls, config: Optional[Union[ConfigNode, dict]] = None,
+                    seed: int = 0, **kw) -> "Music2MIDI":
+        """Random HF-scheme weights from ``seed`` (the same numbers as the
+        JAX package's ``Music2MIDI.from_random(seed=seed)``)."""
+        cfg = resolve_config(config)
+        num_cond = tuple(len(v) for v in cfg.conditioning.values())
+        params = init_params(seed, t5_config_from(cfg), num_cond)
+        return cls(params, cfg, **kw)
+
+    # ------------------------------------------------------------------ #
+    # the device program                                                  #
+    # ------------------------------------------------------------------ #
+
+    def _dcfg(self) -> DecodeConfig:
+        """int8 self- and cross-KV in serving mode, none in the fp32 parity
+        mode."""
+        return DecodeConfig(
+            max_length=self.decode_max_length,
+            quantize_kv=self.t5_config.dtype != torch.float32,
+        )
+
+    def _encode_wave(self, batch: np.ndarray) -> np.ndarray:
+        """Wave transport: int16 in serving mode (round half up through
+        the uint16 bias, as the JAX engine does; lossless for 16-bit
+        audio), float32 in the parity mode."""
+        if self.t5_config.dtype == torch.bfloat16:
+            y = batch * 32768.0
+            np.clip(y, -32768.0, 32767.0, out=y)
+            y += 32768.5
+            return (y.astype(np.uint16) ^ np.uint16(0x8000)).view(np.int16)
+        return batch
+
+    def _device_wave(self, wave_chunks: np.ndarray) -> torch.Tensor:
+        """(B, split) host chunks -> float32 wave on the device, through
+        the mode's transport."""
+        wave = torch.from_numpy(self._encode_wave(wave_chunks)).to(self.device)
+        if not wave.is_floating_point():
+            wave = wave.to(torch.float32) / 32768.0
+        return wave
+
+    def _log_mel(self, wave: torch.Tensor) -> torch.Tensor:
+        """The plain FFT mel in the parity mode; the serving mel (the CUDA
+        kernel on a CUDA tensor) in the serving mode."""
+        if self.t5_config.dtype == torch.float32:
+            return log_mel_spectrogram(wave, self.mel_config)
+        return log_mel_spectrogram_fast(wave, self.mel_config)
+
+    @torch.no_grad()
+    def _encoder(self, mel: torch.Tensor,
+                 cond_index: np.ndarray) -> torch.Tensor:
+        """Conditioning prepend -> encoder hidden states."""
+        cond = torch.from_numpy(cond_index).to(self.device)
+        embeds = conditioning_prepend(self.model, mel, cond)
+        return encode(self.model, embeds, self.t5_config)
+
+    def _decode(self, encoder_hidden: torch.Tensor):
+        """Greedy decode of the batch -> (tokens, lengths)."""
+        return generate_tokens(self.model, encoder_hidden, self.t5_config,
+                               self._dcfg())
+
+    def _encode_and_generate(self, wave_chunks: np.ndarray,
+                             cond_index: np.ndarray):
+        """(B, split) chunks + (B, n_cond) conditioning -> (tokens, lengths)
+        on the device: log-mel -> conditioning -> encoder -> decode."""
+        mel = self._log_mel(self._device_wave(wave_chunks))
+        return self._decode(self._encoder(mel, cond_index))
+
+    # ------------------------------------------------------------------ #
+    # inference                                                           #
+    # ------------------------------------------------------------------ #
+
+    def _chunk_waveform(self, waveform: np.ndarray) -> np.ndarray:
+        """Zero-pad to a 3-s multiple and reshape to (n_chunks, split)."""
+        split_size = int(
+            self.config.model.sample_rate
+            * float(self.config.dataset.segment_duration)
+        )
+        wave = np.asarray(waveform, dtype=np.float32)
+        n_chunks = max(1, -(-len(wave) // split_size))
+        padded = np.zeros(n_chunks * split_size, dtype=np.float32)
+        padded[: len(wave)] = wave
+        return padded.reshape(n_chunks, split_size)
+
+    def _pad_batch(self, batch: np.ndarray,
+                   cond_index: Optional[Sequence[int]] = None):
+        """(n, split) chunks -> (chunks zero-padded to the bucket size,
+        (bucket, n_cond) conditioning indices)."""
+        n = len(batch)
+        b = _bucket(n, int(self.config.inference.batch_size))
+        if n < b:
+            batch = np.concatenate(
+                [batch, np.zeros((b - n, batch.shape[1]), np.float32)]
+            )
+        if cond_index is None:
+            cond = np.zeros((self.num_conditioning,), dtype=np.int64)
+        else:
+            cond = np.asarray(cond_index, dtype=np.int64)
+        return batch, np.broadcast_to(cond, (b, len(cond))).copy()
+
+    def _token_batches(self, chunks: np.ndarray,
+                       cond_index: Optional[Sequence[int]] = None):
+        """Yield (global chunk start, tokens (n, width)) per batch:
+        bucket-padded on the device, pad rows trimmed, and the columns
+        trimmed to the longest real row (the rest is PAD)."""
+        max_bs = int(self.config.inference.batch_size)
+        self.last_decode_stats = []
+        for start in range(0, len(chunks), max_bs):
+            real = chunks[start:start + max_bs]
+            batch, cond_batch = self._pad_batch(real, cond_index)
+            n, b = len(real), len(batch)
+            tokens, lengths = self._encode_and_generate(batch, cond_batch)
+            len_h = lengths.cpu().numpy()
+            self.last_decode_stats.append({
+                "batch_width": int(b),
+                "real_rows": int(n),
+                "steps": int(len_h.max()) - 1,
+                "tokens_real": int(len_h[:n].sum()) - n,
+                "row_steps": (len_h[:n] - 1).tolist(),
+            })
+            yield start, tokens[:n, :int(len_h[:n].max())]
+
+    def generate(
+        self,
+        audio_path: Optional[Union[str, Path]] = None,
+        audio_y: Optional[np.ndarray] = None,
+        sr: Optional[int] = None,
+        cond_index: Optional[Sequence[int]] = None,
+    ) -> MidiFile:
+        """Song -> MidiFile: load a WAV at the model rate (16 kHz), chunk,
+        decode, stitch."""
+        if audio_path is None and audio_y is None:
+            raise ValueError("Either audio_path or audio_y should be specified")
+        model_sr = int(self.config.model.sample_rate)
+        if sr is None:
+            sr = model_sr
+        elif sr != model_sr:
+            raise ValueError(f"sr must be {model_sr}, got {sr}")
+        if audio_y is None:
+            audio_y, sr = audio.load(audio_path, sr=model_sr)
+        audio_y = np.asarray(audio_y, dtype=np.float32)
+        return numpy_to_midi(self.sample_notes(audio_y, cond_index))
+
+    def sample_notes(self, waveform: np.ndarray,
+                     cond_index: Optional[Sequence[int]] = None) -> np.ndarray:
+        """waveform (S,) at the model rate -> stitched (N, 4) note array.
+
+        Detokenization runs on the device by default; ``device_detokenize
+        =False`` takes the host tokenizer instead (the cross-check)."""
+        split_duration = float(self.config.dataset.segment_duration)
+        chunks = self._chunk_waveform(waveform)
+        n_steps = round(split_duration / self.tokenizer.time_step)
+        if self.device_detokenize:
+            parts: List[np.ndarray] = []
+            for start, tokens in self._token_batches(chunks, cond_index):
+                start_idx = torch.arange(
+                    start, start + tokens.shape[0], device=tokens.device
+                ) * n_steps
+                parts.extend(detokenize_to_host(
+                    tokens, start_idx, self.tokenizer.time_step
+                ))
+            if not parts:
+                return np.zeros((0, 4))
+            return np.concatenate(parts)
+        tokens_list = self.sample_tokens_batched(chunks, cond_index)
+        return self.tokenizer.decode(
+            tokens_list, mode="sequential", duration_per_batch=split_duration
+        )
+
+    def sample_tokens_batched(self, chunks: np.ndarray,
+                              cond_index: Optional[Sequence[int]] = None
+                              ) -> List[np.ndarray]:
+        """Token sequences per chunk, EOS-trimmed, on the host."""
+        out: List[np.ndarray] = []
+        eos_id = self.t5_config.eos_token_id
+        for _, tokens in self._token_batches(chunks, cond_index):
+            for row in tokens.cpu().numpy():
+                eos = np.nonzero(row == eos_id)[0]
+                end = int(eos[0]) + 1 if len(eos) else len(row)
+                out.append(row[:end].astype(np.int64))
+        return out

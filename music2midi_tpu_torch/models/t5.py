@@ -1,0 +1,587 @@
+"""T5 encoder-decoder in PyTorch, HF-``transformers`` semantics.
+
+Port of ``music2midi_tpu/models/t5.py``: RMSNorm with fp32 variance (cast
+before the weight multiply), UNSCALED q.k attention with -1e9 masking,
+relative position buckets (bidirectional encoder, causal decoder, one bias
+table per stack), gated-GELU ("gelu_new") FFN, untied lm_head.
+
+Parameters live in ``T5Model``, an ``nn.Module`` whose parameter names are
+the JAX tree paths joined with ``.`` (see ``weights.py``), kept in the
+layout of the JAX package: projections are (in, out) and apply as
+``x @ w``.  The forward passes are plain functions over that module and a
+``T5Config`` that names the compute dtype, as in the JAX package.
+
+Matmuls follow the JAX package's precision: projections multiply in the
+compute dtype (fp32 accumulation, output rounded to the compute dtype);
+attention scores and the probability-weighted sums are accumulated and
+kept in fp32 (JAX's ``preferred_element_type=float32``), which here means
+upcasting the (exact) compute-dtype operands to fp32.
+
+Decoding (``precompute_cross_kv``, ``init_kv_cache``, ``decode_step``)
+updates the self-attention KV cache IN PLACE, where the JAX package
+returns a new one, and attends over the written prefix ``[0, step]`` of
+the cache only.  That is the JAX package's causal mask (-1e9 on keys after
+``step``, which underflow to exactly zero probability) without the masked
+columns.  The cross-KV is not padded to a multiple of 128: that pad is a
+TPU lane-layout choice, and the unpadded keys give the same outputs.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+
+class T5Config(NamedTuple):
+    vocab_size: int = 400
+    d_model: int = 384
+    d_kv: int = 64
+    num_heads: int = 8
+    d_ff: int = 1152
+    num_layers: int = 6
+    num_decoder_layers: int = 6
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    dropout_rate: float = 0.1
+    layer_norm_epsilon: float = 1e-6
+    pad_token_id: int = 0
+    eos_token_id: int = 2
+    decoder_start_token_id: int = 1
+    dtype: torch.dtype = torch.float32  # compute dtype for matmuls
+
+
+def t5_config_from(config, dtype=torch.float32) -> T5Config:
+    """Build from the shared config tree; keys it does not set keep the HF
+    T5Config defaults above."""
+    t5 = config.model.t5
+    return T5Config(
+        vocab_size=int(t5.vocab_size),
+        d_model=int(t5.d_model),
+        d_ff=int(t5.d_ff),
+        num_layers=int(t5.num_layers),
+        num_decoder_layers=int(t5.num_decoder_layers),
+        relative_attention_num_buckets=int(t5.relative_attention_num_buckets),
+        pad_token_id=int(t5.pad_token_id),
+        eos_token_id=int(t5.eos_token_id),
+        decoder_start_token_id=int(t5.decoder_start_token_id),
+        dtype=dtype,
+    )
+
+
+# --------------------------------------------------------------------- #
+# parameters                                                             #
+# --------------------------------------------------------------------- #
+
+
+def _p(*shape) -> nn.Parameter:
+    return nn.Parameter(torch.empty(*shape), requires_grad=False)
+
+
+class Attention(nn.Module):
+    def __init__(self, d: int, inner: int):
+        super().__init__()
+        self.q, self.k, self.v = _p(d, inner), _p(d, inner), _p(d, inner)
+        self.o = _p(inner, d)
+
+
+class MLP(nn.Module):
+    def __init__(self, d: int, d_ff: int):
+        super().__init__()
+        self.wi_0, self.wi_1, self.wo = _p(d, d_ff), _p(d, d_ff), _p(d_ff, d)
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, cfg: T5Config):
+        super().__init__()
+        d = cfg.d_model
+        self.self_attn = Attention(d, cfg.num_heads * cfg.d_kv)
+        self.ln1 = _p(d)
+        self.mlp = MLP(d, cfg.d_ff)
+        self.ln2 = _p(d)
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: T5Config):
+        super().__init__()
+        d, inner = cfg.d_model, cfg.num_heads * cfg.d_kv
+        self.self_attn = Attention(d, inner)
+        self.ln1 = _p(d)
+        self.cross_attn = Attention(d, inner)
+        self.ln2 = _p(d)
+        self.mlp = MLP(d, cfg.d_ff)
+        self.ln3 = _p(d)
+
+
+class Stack(nn.Module):
+    def __init__(self, cfg: T5Config, layer_cls, n_layers: int):
+        super().__init__()
+        self.layers = nn.ModuleList(layer_cls(cfg) for _ in range(n_layers))
+        self.rel_bias = _p(cfg.relative_attention_num_buckets, cfg.num_heads)
+        self.final_ln = _p(cfg.d_model)
+
+
+class T5Model(nn.Module):
+    """The parameter container; names match ``weights.load_npz`` keys."""
+
+    def __init__(self, cfg: T5Config, num_conditioning: Tuple[int, ...] = (6, 3)):
+        super().__init__()
+        self.shared_embedding = _p(cfg.vocab_size, cfg.d_model)
+        self.encoder = Stack(cfg, EncoderLayer, cfg.num_layers)
+        self.decoder = Stack(cfg, DecoderLayer, cfg.num_decoder_layers)
+        self.lm_head = _p(cfg.d_model, cfg.vocab_size)
+        self.conditioning = nn.ParameterList(
+            _p(n, cfg.d_model) for n in num_conditioning
+        )
+
+    @classmethod
+    def from_state_dict(cls, sd: Dict[str, torch.Tensor], cfg: T5Config
+                        ) -> "T5Model":
+        """Build around the given tensors (their dtypes are kept: a bf16
+        checkpoint stays bf16, as the JAX engine keeps it)."""
+        n_cond = []
+        while f"conditioning.{len(n_cond)}" in sd:
+            n_cond.append(sd[f"conditioning.{len(n_cond)}"].shape[0])
+        with torch.device("meta"):
+            model = cls(cfg, tuple(n_cond))
+        model.load_state_dict(
+            {k: nn.Parameter(v, requires_grad=False) for k, v in sd.items()},
+            strict=True, assign=True,
+        )
+        return model
+
+
+def init_params(seed: int, cfg: T5Config,
+                num_conditioning: Tuple[int, ...] = (6, 3)) -> Dict[str, np.ndarray]:
+    """HF T5 init scheme on host numpy -> flat float32 state_dict arrays.
+
+    For a seed in [0, 2**32) this draws the same numbers as the JAX
+    package's ``init_params(seed, ...)`` (same entropy words, same order),
+    so both engines can start from identical random weights."""
+    if not 0 <= int(seed) < 2 ** 32:
+        raise ValueError(f"seed must be in [0, 2**32), got {seed}")
+    rng = np.random.default_rng([0, int(seed)])
+    d, dk, h, dff = cfg.d_model, cfg.d_kv, cfg.num_heads, cfg.d_ff
+    inner = h * dk
+    out: Dict[str, np.ndarray] = {}
+
+    def normal(key, shape, std):
+        out[key] = (rng.normal(size=shape) * std).astype(np.float32)
+
+    def ones(key):
+        out[key] = np.ones((d,), np.float32)
+
+    def attn(prefix):
+        normal(prefix + ".q", (d, inner), (d * dk) ** -0.5)
+        normal(prefix + ".k", (d, inner), d ** -0.5)
+        normal(prefix + ".v", (d, inner), d ** -0.5)
+        normal(prefix + ".o", (inner, d), inner ** -0.5)
+
+    def mlp(prefix):
+        normal(prefix + ".wi_0", (d, dff), d ** -0.5)
+        normal(prefix + ".wi_1", (d, dff), d ** -0.5)
+        normal(prefix + ".wo", (dff, d), dff ** -0.5)
+
+    normal("shared_embedding", (cfg.vocab_size, d), 1.0)
+    for i in range(cfg.num_layers):
+        p = f"encoder.layers.{i}"
+        attn(p + ".self_attn")
+        ones(p + ".ln1")
+        mlp(p + ".mlp")
+        ones(p + ".ln2")
+    normal("encoder.rel_bias", (cfg.relative_attention_num_buckets, h),
+           (d * dk) ** -0.5)
+    ones("encoder.final_ln")
+    for i in range(cfg.num_decoder_layers):
+        p = f"decoder.layers.{i}"
+        attn(p + ".self_attn")
+        ones(p + ".ln1")
+        attn(p + ".cross_attn")
+        ones(p + ".ln2")
+        mlp(p + ".mlp")
+        ones(p + ".ln3")
+    normal("decoder.rel_bias", (cfg.relative_attention_num_buckets, h),
+           (d * dk) ** -0.5)
+    ones("decoder.final_ln")
+    normal("lm_head", (d, cfg.vocab_size), d ** -0.5)
+    for i, n in enumerate(num_conditioning):
+        normal(f"conditioning.{i}", (n, d), 1.0)
+    return out
+
+
+# --------------------------------------------------------------------- #
+# primitives                                                             #
+# --------------------------------------------------------------------- #
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """T5LayerNorm: no mean subtraction, variance in fp32, cast to the
+    input dtype before the weight multiply."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (weight * y.to(x.dtype)).to(x.dtype)
+
+
+_GELU_C = float(np.sqrt(2.0 / np.pi).astype(np.float32))
+
+
+def gelu_new(x: torch.Tensor) -> torch.Tensor:
+    """HF "gelu_new" (tanh approximation).  As in the JAX package, the
+    polynomial runs in the input dtype and the tanh and the final product
+    in fp32 (the float32 constant promotes there)."""
+    x3 = x * x * x
+    inner = (x + 0.044715 * x3).float() * _GELU_C
+    return (0.5 * x).float() * (1.0 + torch.tanh(inner))
+
+
+def relative_position_bucket(
+    relative_position: torch.Tensor, bidirectional: bool, num_buckets: int,
+    max_distance: int,
+) -> torch.Tensor:
+    """HF T5Attention._relative_position_bucket; relative = key - query."""
+    rel = relative_position
+    buckets = torch.zeros_like(rel)
+    if bidirectional:
+        num_buckets //= 2
+        buckets = buckets + (rel > 0).to(rel.dtype) * num_buckets
+        rel = rel.abs()
+    else:
+        rel = -torch.clamp(rel, max=0)
+    max_exact = num_buckets // 2
+    is_small = rel < max_exact
+    rel_f = torch.clamp(rel.float(), min=1.0)  # guard log(0)
+    large = max_exact + (
+        torch.log(rel_f / max_exact)
+        / math.log(max_distance / max_exact)
+        * (num_buckets - max_exact)
+    ).to(rel.dtype)
+    large = torch.clamp(large, max=num_buckets - 1)
+    return buckets + torch.where(is_small, rel, large)
+
+
+def position_bias(
+    rel_bias_table: torch.Tensor,  # (num_buckets, heads)
+    query_positions: torch.Tensor,  # (Q,)
+    key_positions: torch.Tensor,  # (K,)
+    bidirectional: bool, num_buckets: int, max_distance: int,
+) -> torch.Tensor:
+    """-> (heads, Q, K) additive attention bias."""
+    rel = key_positions[None, :] - query_positions[:, None]
+    buckets = relative_position_bucket(rel, bidirectional, num_buckets,
+                                       max_distance)
+    return rel_bias_table[buckets].permute(2, 0, 1)
+
+
+def _split_heads(x: torch.Tensor, num_heads: int, d_kv: int) -> torch.Tensor:
+    """(B, L, H*D) -> (B, H, L, D)"""
+    b, l, _ = x.shape
+    return x.reshape(b, l, num_heads, d_kv).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, L, D) -> (B, L, H*D)"""
+    b, h, l, d = x.shape
+    return x.transpose(1, 2).reshape(b, l, h * d)
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
+    """Bias-free linear x (..., in) @ w (in, out) in the compute dtype."""
+    return torch.matmul(x.to(dtype), w.to(dtype))
+
+
+def attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    bias: Optional[torch.Tensor],  # broadcastable to (B, H, Q, K)
+    mask: Optional[torch.Tensor],  # broadcastable, True = keep
+    dtype,
+) -> torch.Tensor:
+    """T5 attention: scores = q @ k^T (NO 1/sqrt(d)) + bias, fp32 softmax."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if bias is not None:
+        scores = scores + bias.float()
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.tensor(-1e9, dtype=torch.float32,
+                                                        device=scores.device))
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    return torch.matmul(probs.float(), v.float()).to(dtype)
+
+
+def self_attention_block(p: Attention, x, bias, mask, cfg: T5Config):
+    q = _split_heads(_proj(x, p.q, cfg.dtype), cfg.num_heads, cfg.d_kv)
+    k = _split_heads(_proj(x, p.k, cfg.dtype), cfg.num_heads, cfg.d_kv)
+    v = _split_heads(_proj(x, p.v, cfg.dtype), cfg.num_heads, cfg.d_kv)
+    out = attention(q, k, v, bias, mask, cfg.dtype)
+    return _proj(_merge_heads(out), p.o, cfg.dtype)
+
+
+def mlp_block(p: MLP, x, cfg: T5Config):
+    """Gated-GELU FFN: wo(gelu_new(wi_0 x) * (wi_1 x))."""
+    gate = gelu_new(_proj(x, p.wi_0, cfg.dtype))
+    lin = _proj(x, p.wi_1, cfg.dtype)
+    return _proj(gate * lin, p.wo, cfg.dtype)
+
+
+# --------------------------------------------------------------------- #
+# stacks                                                                 #
+# --------------------------------------------------------------------- #
+
+
+@torch.no_grad()
+def encode(model: T5Model, inputs_embeds: torch.Tensor, cfg: T5Config
+           ) -> torch.Tensor:
+    """Encoder stack over inputs_embeds (B, L, d_model) (inference: no
+    dropout)."""
+    enc = model.encoder
+    L = inputs_embeds.shape[1]
+    pos = torch.arange(L, device=inputs_embeds.device)
+    bias = position_bias(
+        enc.rel_bias, pos, pos, True, cfg.relative_attention_num_buckets,
+        cfg.relative_attention_max_distance,
+    )[None]
+    x = inputs_embeds.to(cfg.dtype)
+    for layer in enc.layers:
+        h = rms_norm(x, layer.ln1, cfg.layer_norm_epsilon)
+        x = x + self_attention_block(layer.self_attn, h, bias, None, cfg)
+        h = rms_norm(x, layer.ln2, cfg.layer_norm_epsilon)
+        x = x + mlp_block(layer.mlp, h, cfg)
+    return rms_norm(x, enc.final_ln, cfg.layer_norm_epsilon)
+
+
+@torch.no_grad()
+def decoder_forward(
+    model: T5Model, decoder_input_ids: torch.Tensor,
+    encoder_hidden: torch.Tensor, cfg: T5Config,
+) -> torch.Tensor:
+    """Full-sequence decoder -> logits (B, T, vocab)."""
+    dec = model.decoder
+    T = decoder_input_ids.shape[1]
+    dev = encoder_hidden.device
+    x = model.shared_embedding[decoder_input_ids].to(cfg.dtype)
+    pos = torch.arange(T, device=dev)
+    bias = position_bias(
+        dec.rel_bias, pos, pos, False, cfg.relative_attention_num_buckets,
+        cfg.relative_attention_max_distance,
+    )[None]
+    causal = torch.ones((T, T), dtype=torch.bool, device=dev).tril()[None, None]
+    for layer in dec.layers:
+        h = rms_norm(x, layer.ln1, cfg.layer_norm_epsilon)
+        x = x + self_attention_block(layer.self_attn, h, bias, causal, cfg)
+        h = rms_norm(x, layer.ln2, cfg.layer_norm_epsilon)
+        ca = layer.cross_attn
+        q = _split_heads(_proj(h, ca.q, cfg.dtype), cfg.num_heads, cfg.d_kv)
+        k = _split_heads(_proj(encoder_hidden, ca.k, cfg.dtype),
+                         cfg.num_heads, cfg.d_kv)
+        v = _split_heads(_proj(encoder_hidden, ca.v, cfg.dtype),
+                         cfg.num_heads, cfg.d_kv)
+        a = attention(q, k, v, None, None, cfg.dtype)
+        x = x + _proj(_merge_heads(a), ca.o, cfg.dtype)
+        h = rms_norm(x, layer.ln3, cfg.layer_norm_epsilon)
+        x = x + mlp_block(layer.mlp, h, cfg)
+    x = rms_norm(x, dec.final_ln, cfg.layer_norm_epsilon)
+    return _proj(x, model.lm_head, cfg.dtype)
+
+
+def conditioning_prepend(model: T5Model, features: torch.Tensor,
+                         cond_index: torch.Tensor) -> torch.Tensor:
+    """(B, L, d) + (B, n_cond) -> (B, n_cond + L, d): one embedding per
+    conditioning type in front of the mel frames."""
+    embeds = [table[cond_index[:, i]]
+              for i, table in enumerate(model.conditioning)]
+    stacked = torch.stack(embeds, dim=1).to(features.dtype)
+    return torch.cat([stacked, features], dim=1)
+
+
+# --------------------------------------------------------------------- #
+# incremental decoding                                                   #
+# --------------------------------------------------------------------- #
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, H, L, D) -> (int8 values, fp32 scales laid out (B, H, 1, L)):
+    symmetric per-position amax / 127, round half to even."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127.0, 127.0)
+    return q.to(torch.int8), scale.transpose(-1, -2)
+
+
+def _attention_int8(
+    q: torch.Tensor,  # (B, H, 1, D)
+    k_entry: Tuple[torch.Tensor, torch.Tensor],  # int8 (B,H,L,D), (B,H,1,L)
+    v_entry: Tuple[torch.Tensor, torch.Tensor],
+    bias: Optional[torch.Tensor],  # broadcastable to (B, H, 1, L), fp32
+    mask: Optional[torch.Tensor],  # broadcastable, True = keep
+    dtype,
+) -> torch.Tensor:
+    """Decode-time attention over int8 K/V with the per-position scales
+    folded into the score and probability rows:
+    q . (k8_j ks_j) = ks_j (q . k8_j) and sum_j p_j v8_j vs_j =
+    sum_j (p_j vs_j) v8_j, so no dequantized K/V tensor is formed.  int8
+    values are exact in fp32, so the products match the JAX package's
+    compute-dtype operands with fp32 accumulation."""
+    k8, k_scale = k_entry
+    v8, v_scale = v_entry
+    scores = torch.matmul(q.float(), k8.float().transpose(-1, -2))
+    scores = scores * k_scale
+    if bias is not None:
+        scores = scores + bias.float()
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.tensor(-1e9, dtype=torch.float32,
+                                                        device=scores.device))
+    probs = torch.softmax(scores, dim=-1)
+    probs = (probs * v_scale).to(dtype)
+    return torch.matmul(probs.float(), v8.float()).to(dtype)
+
+
+class CrossKV(NamedTuple):
+    """Per-layer cross-attention (K, V), each a tensor or an int8 pair."""
+    layers: list
+    enc_len: int
+
+
+@torch.no_grad()
+def precompute_cross_kv(model: T5Model, encoder_hidden: torch.Tensor,
+                        cfg: T5Config, quantize: bool = False) -> CrossKV:
+    """Cross-attention K/V of every decoder layer, computed once per
+    generation; ``quantize`` stores int8 values with (B, H, 1, L) scales."""
+    out = []
+    for layer in model.decoder.layers:
+        ca = layer.cross_attn
+        k = _split_heads(_proj(encoder_hidden, ca.k, cfg.dtype),
+                         cfg.num_heads, cfg.d_kv)
+        v = _split_heads(_proj(encoder_hidden, ca.v, cfg.dtype),
+                         cfg.num_heads, cfg.d_kv)
+        if quantize:
+            out.append((_quantize_kv(k), _quantize_kv(v)))
+        else:
+            out.append((k, v))
+    return CrossKV(layers=out, enc_len=encoder_hidden.shape[1])
+
+
+def init_kv_cache(batch: int, max_len: int, cfg: T5Config,
+                  quantize: bool = False, device=None) -> list:
+    """Per layer a (K, V) pair of (B, H, max_len, d_kv) buffers, or of int8
+    (values, (B, H, 1, max_len) fp32 scales) pairs when ``quantize``."""
+    shape = (batch, cfg.num_heads, max_len, cfg.d_kv)
+    sshape = (batch, cfg.num_heads, 1, max_len)
+
+    def one():
+        if quantize:
+            return (torch.zeros(shape, dtype=torch.int8, device=device),
+                    torch.ones(sshape, dtype=torch.float32, device=device))
+        return torch.zeros(shape, dtype=cfg.dtype, device=device)
+
+    return [(one(), one()) for _ in range(cfg.num_decoder_layers)]
+
+
+def prepare_decode_params(model: T5Model, cfg: T5Config) -> dict:
+    """Decode-time weights, built once per generation: projections cast to
+    the compute dtype, self-attention q/k/v fused into one (d, 3*H*D)
+    matrix and wi_0/wi_1 into one (d, 2*d_ff).  Layer-norm weights keep
+    their stored dtype (rms_norm multiplies before its final cast)."""
+    dt = cfg.dtype
+    layers = []
+    for layer in model.decoder.layers:
+        sa, ca, mlp = layer.self_attn, layer.cross_attn, layer.mlp
+        layers.append({
+            "ln1": layer.ln1, "ln2": layer.ln2, "ln3": layer.ln3,
+            "sa_qkv": torch.cat([sa.q, sa.k, sa.v], dim=1).to(dt),
+            "sa_o": sa.o.to(dt),
+            "ca_q": ca.q.to(dt),
+            "ca_o": ca.o.to(dt),
+            "mlp_wi": torch.cat([mlp.wi_0, mlp.wi_1], dim=1).to(dt),
+            "mlp_wo": mlp.wo.to(dt),
+        })
+    return {
+        "embedding": model.shared_embedding.to(dt),
+        "rel_bias": model.decoder.rel_bias,
+        "final_ln": model.decoder.final_ln,
+        "lm_head": model.lm_head.to(dt),
+        "layers": layers,
+    }
+
+
+def decoder_bias_rows(rel_bias: torch.Tensor, max_len: int,
+                      cfg: T5Config) -> torch.Tensor:
+    """(H, max_len) causal position-bias row read backwards: the bias of
+    query ``step`` over keys ``0..step`` is ``rows[:, max_len-1-step:]``
+    (the decoder bias depends only on key - query)."""
+    rel = torch.arange(-(max_len - 1), 1, device=rel_bias.device)
+    buckets = relative_position_bucket(
+        rel, False, cfg.relative_attention_num_buckets,
+        cfg.relative_attention_max_distance,
+    )
+    return rel_bias[buckets].transpose(0, 1)
+
+
+def _write_kv(entry, new: torch.Tensor, step: int, new_q=None) -> None:
+    """Write this step's (B, H, 1, D) K or V row into a cache entry, in
+    place: a plain buffer, or an int8 (values, scales) pair (the row is
+    quantized with its own per-(B, H) scale)."""
+    if isinstance(entry, tuple):
+        vals, scales = entry
+        q8, s = new_q if new_q is not None else _quantize_kv(new)
+        vals[:, :, step:step + 1] = q8
+        scales[:, :, :, step:step + 1] = s
+    else:
+        entry[:, :, step:step + 1] = new
+
+
+def _prefix(entry, n: int):
+    """The first n cached positions of an entry (a view)."""
+    if isinstance(entry, tuple):
+        vals, scales = entry
+        return vals[:, :, :n], scales[:, :, :, :n]
+    return entry[:, :, :n]
+
+
+@torch.no_grad()
+def decode_step(
+    dparams: dict,  # prepare_decode_params output
+    token: torch.Tensor,  # (B,) current input token
+    step: int,  # position of `token`
+    kv_cache: list,
+    cross_kv: CrossKV,
+    cfg: T5Config,
+    bias_rows: torch.Tensor,  # decoder_bias_rows(...)
+) -> torch.Tensor:
+    """One incremental decoder step -> logits (B, vocab).  Writes this
+    step's K/V into ``kv_cache`` at ``step`` and attends over [0, step]."""
+    dt = cfg.dtype
+    H, D = cfg.num_heads, cfg.d_kv
+    x = dparams["embedding"][token][:, None]  # (B, 1, d_model)
+    n = step + 1
+    L = bias_rows.shape[1]
+    bias_row = bias_rows[:, L - n:][None, :, None, :]  # (1, H, 1, n)
+    for i, layer in enumerate(dparams["layers"]):
+        h = rms_norm(x, layer["ln1"], cfg.layer_norm_epsilon)
+        qkv = _proj(h, layer["sa_qkv"], dt)
+        q, k_new, v_new = (_split_heads(p, H, D) for p in qkv.chunk(3, dim=-1))
+        k_entry, v_entry = kv_cache[i]
+        _write_kv(k_entry, k_new, step)
+        _write_kv(v_entry, v_new, step)
+        if isinstance(k_entry, tuple):
+            h = _attention_int8(q, _prefix(k_entry, n), _prefix(v_entry, n),
+                                bias_row, None, dt)
+        else:
+            h = attention(q, _prefix(k_entry, n), _prefix(v_entry, n),
+                          bias_row, None, dt)
+        x = x + _proj(_merge_heads(h), layer["sa_o"], dt)
+        h = rms_norm(x, layer["ln2"], cfg.layer_norm_epsilon)
+        q = _split_heads(_proj(h, layer["ca_q"], dt), H, D)
+        ck, cv = cross_kv.layers[i]
+        if isinstance(ck, tuple):
+            a = _attention_int8(q, ck, cv, None, None, dt)
+        else:
+            a = attention(q, ck, cv, None, None, dt)
+        x = x + _proj(_merge_heads(a), layer["ca_o"], dt)
+        h = rms_norm(x, layer["ln3"], cfg.layer_norm_epsilon)
+        gate, lin = _proj(h, layer["mlp_wi"], dt).chunk(2, dim=-1)
+        x = x + _proj(gelu_new(gate) * lin, layer["mlp_wo"], dt)
+    x = rms_norm(x, dparams["final_ln"], cfg.layer_norm_epsilon)
+    return _proj(x, dparams["lm_head"], dt)[:, 0, :]

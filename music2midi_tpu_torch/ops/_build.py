@@ -1,0 +1,139 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+All of ``music2midi_tpu_torch/csrc/*.cu`` is compiled by ONE ``nvcc``
+invocation into one shared library with a plain C interface, which is
+loaded with ``ctypes``.  No PyTorch headers are included, so the build
+takes seconds rather than the minutes a ``torch.utils.cpp_extension``
+build takes.
+
+The build runs at first use, never at import, into ``_build/`` next to
+this package (listed in ``.gitignore``).  The library's file name carries
+a hash of the sources and flags, so an edited source is rebuilt and a
+stale library is never loaded.  Nothing here runs on a machine without
+``nvcc``; the CPU paths of the package never call it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_c_void_p = ctypes.c_void_p
+_c_int = ctypes.c_int
+_c_float = ctypes.c_float
+
+# argtypes of every exported launcher: pointers and the stream as
+# c_void_p (a bare Python int would be passed as a 32-bit int)
+_SIGNATURES = {
+    "m2m_log_mel_fft": [_c_void_p] * 8 + [_c_int] * 6 + [_c_float, _c_void_p],
+}
+
+
+class BuildInfo:
+    """What the last build (or cache hit) of this process did."""
+
+    def __init__(self, path: Path, seconds: float, cached: bool, log: str):
+        self.path = path
+        self.seconds = seconds
+        self.cached = cached
+        self.log = log
+
+    def ptxas_lines(self) -> list:
+        """The register / shared-memory / spill lines of ``-Xptxas -v``."""
+        keys = ("registers", "spill", "smem", "Compiling entry")
+        return [ln.strip() for ln in self.log.splitlines()
+                if any(k in ln for k in keys)]
+
+
+_lib: Optional[ctypes.CDLL] = None
+_info: Optional[BuildInfo] = None
+
+
+def find_nvcc() -> str:
+    """nvcc on PATH, else under CUDA_HOME or /usr/local/cuda/bin."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "CUDA kernels of music2midi_tpu_torch are built at first use and "
+        "need the CUDA toolkit"
+    )
+
+
+def _sources() -> list:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _digest(sources: list) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> BuildInfo:
+    """Compile csrc/*.cu (if this exact source set is not built yet)."""
+    global _info
+    if _info is not None:
+        return _info
+    sources = _sources()
+    if not sources:
+        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    lib_path = BUILD_DIR / f"libm2m_kernels_{_digest(sources)}.so"
+    if lib_path.is_file():
+        _info = BuildInfo(lib_path, 0.0, True, "")
+        return _info
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp_path = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp_path), *map(str, sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{log}"
+        )
+    os.replace(tmp_path, lib_path)
+    _info = BuildInfo(lib_path, seconds, False, log)
+    return _info
+
+
+def load() -> ctypes.CDLL:
+    """The built library, with every launcher's argtypes declared."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build().path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _c_int
+        _lib = lib
+    return _lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a launcher."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed, cudaError_t {status}")
