@@ -9,24 +9,43 @@ and exits non-zero, and nothing is caught and passed over:
 
   1. environment: card name, ``nvidia-smi`` name and power limit, torch
      and nvcc versions (no card: exit 1 before anything else);
-  2. build: the one nvcc build of ``music2midi_tpu_torch/csrc/*.cu``;
-  3. kernel vs plain: the fused log-mel kernel against its plain PyTorch
-     version on the card, at the serving shape of a 3-minute song (64
-     chunks of 48000 samples: noise, a 440 Hz tone and silence, plus the
-     bucket's zero rows) and at a ragged length (41234 samples), with the
-     TPU kernel's bars: noise within 1e-3 in the log domain, silence on
-     log(1e-6) within 1e-4, the tone's argmax mel bin equal; then the
-     kernel, the plain version and a torch.stft chain timed with CUDA
-     events;
+  2. build: ``music2midi_tpu_torch/csrc/*.cu``, one nvcc per source in
+     parallel, then one link;
+  3. kernel vs plain: each kernel against its plain PyTorch version on the
+     card at the shapes the serving path gives it, then the kernel, the
+     plain version and a library yardstick timed with CUDA events:
+     - the FFT and the direct-DFT log-mel kernels at the serving shape of
+       a 3-minute song (64 chunks of 48000 samples: noise, a 440 Hz tone
+       and silence, plus the bucket's zero rows) and at a ragged length
+       (41234 samples), with the TPU kernel's bars: noise within 1e-3 in
+       the log domain, silence on log(1e-6) within 1e-4, the tone's
+       argmax mel bin equal; yardstick: a torch.stft chain; bound: the
+       function's (a real FFT's operations) for both kernels, and for the
+       direct-DFT one also its algorithm's (``algorithm_bound_ms``);
+     - the int8 decode-attention kernel at B = 64, H = 8, D = 64 over a
+       1024-long int8 cache, causal at steps 0, 63, 127 and 1022, and
+       cross at enc_len 190 = L and 150 on K/V laid out as
+       ``precompute_cross_kv`` lays them out; the transposed-cross kernel
+       at (64, 8, 64, 190), enc_len 190 and 150; bar 2e-2 on the bf16
+       outputs; yardstick: ``F.scaled_dot_product_attention`` over K/V
+       dequantized to bf16 before the timed region; timed over six
+       inputs in turn, as the decode loop's six layers come;
   4. serving path: ``Music2MIDI.from_npz(model of record, bf16)`` on the
      card, ``generate(audio_path=...)`` on the calibration fixture, the
-     pinned ``check_midi`` gate, and the mel kernel's launch count of
-     this run;
-  5. fp32 parity: the same fixture's greedy tokens through fp32 engines
+     pinned ``check_midi`` gate, and the launch counts of this run (the
+     mel kernel, the int8 decode-attention kernel); then the same with
+     ``pallas_cross = True`` (the transposed-cross kernel);
+  5. DFT mel path: the direct-DFT log-mel entry point on the song's chunk
+     batch (no engine path calls it), against the serving mel;
+  6. fp32 parity: the same fixture's greedy tokens through fp32 engines
      on the card and on the CPU, agreement >= 0.99;
-  6. song timing: a synthetic 3-minute song through serving ``generate``,
-     one warm-up and three timed runs, and a per-stage breakdown;
-  7. the ``kernels`` JSON line.
+  7. song timing: a synthetic 3-minute song through serving ``generate``,
+     one warm-up and three timed runs, a per-stage breakdown, and the
+     decode stage with the attention kernels off and on (in turns) on
+     the same encoder output;
+  8. batch serving: ``warmup([128])``, then ``generate_batch`` over four
+     synthetic 3-minute songs, one warm-up and two timed runs;
+  9. the ``kernels`` JSON line.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -35,6 +54,7 @@ Only ``nvcc`` and ``nvidia-smi`` are started as subprocesses; no threads.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
@@ -47,6 +67,10 @@ ROOT = Path(__file__).resolve().parent
 RECORD = ROOT / "checkpoints" / "model_of_record.npz"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
+ATTN_BAR = 2e-2  # decode-attention kernels vs plain, bf16 outputs
+B_SERVE, HEADS, D_KV = 64, 8, 64  # the song's bucket; the model's heads
+SELF_LEN, ENC_LEN = 1024, 190  # decode_max_length; 188 frames + 2 cond
+N_LAYERS = 6  # decoder layers: timed inputs taken in turn
 
 
 def require(ok: bool, what) -> None:
@@ -75,7 +99,9 @@ class Phase:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean milliseconds per call over `iters` calls, CUDA events."""
+    """Mean milliseconds per call over `iters` back-to-back calls, CUDA
+    events: the time of the device or of the host's launches, whichever
+    is longer (a stage's latency)."""
     import torch
 
     for _ in range(warmup):
@@ -89,6 +115,43 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+_SPIN = {}
+
+
+def spin_cycles_per_ms() -> float:
+    """Cycles of ``torch.cuda._sleep`` per millisecond, measured once."""
+    import torch
+
+    if "cycles_per_ms" not in _SPIN:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        _SPIN["cycles_per_ms"] = 10_000_000 / start.elapsed_time(end)
+    return _SPIN["cycles_per_ms"]
+
+
+def device_ms(fn, iters: int, warmup: int = 3) -> tuple:
+    """-> (device ms per call, host-inclusive ms per call).  The calls
+    are queued behind a spin kernel that outlasts their enqueueing, so
+    the events around them time the device alone and not the host's
+    launch rate; the second number is ``cuda_ms``'s."""
+    import torch
+
+    host = cuda_ms(fn, iters, warmup)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((1.5 * iters * host + 5.0) * spin_cycles_per_ms()))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host
 
 
 def stft_log_mel(wave, cfg):
@@ -106,24 +169,47 @@ def stft_log_mel(wave, cfg):
     return torch.log(torch.clamp(mel, min=cfg.log_floor))
 
 
-def mel_bound(B: int, S: int, cfg) -> tuple:
+def _bound(nbytes: float, ops: float) -> tuple:
+    """-> (ms, "bytes" or "operations", bytes, ops): the larger of bytes
+    over the HBM rate and fp32 operations over the fp32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, ops)
+
+
+def mel_bound(B: int, S: int, cfg, direct_dft: bool = False) -> tuple:
     """Least time on the card for the log-mel of (B, S): bytes (wave read
     once, mels written once) over HBM rate vs fp32 operations over the
-    fp32 rate.  A frame needs an n_fft-point real FFT, 2.5 N log2 N flops
-    (half a complex FFT of the same length), plus the window, the power
-    of N/2 + 1 bins and the multiply-adds of the nonzero mel weights."""
+    fp32 rate.  The function needs, per frame, an n_fft-point real FFT,
+    2.5 N log2 N flops (half a complex FFT of the same length), plus the
+    window, the power of N/2 + 1 bins and the multiply-adds of the nonzero
+    mel weights: this is the bound of both mel kernels.  ``direct_dft``
+    counts instead what the direct-DFT algorithm does, a multiply-add per
+    sample for the cos and the sin half of each of the N/2 + 1 bins,
+    4 N (N/2 + 1) flops: the least time of that algorithm, not of the
+    function."""
     from music2midi_tpu_torch.ops.mel import num_frames
     from music2midi_tpu_torch.ops.mel_cuda import mel_nnz
 
     F = num_frames(S, cfg)
     n = cfg.n_fft
     nbytes = 4 * B * S + 4 * B * F * cfg.n_mels
-    per_frame = 2.5 * n * math.log2(n) + n + 3 * (n // 2 + 1) + 2 * mel_nnz(cfg)
-    ops = B * F * per_frame
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            nbytes, ops)
+    transform = (4 * n * (n // 2 + 1) if direct_dft
+                 else 2.5 * n * math.log2(n))
+    per_frame = transform + n + 3 * (n // 2 + 1) + 2 * mel_nnz(cfg)
+    return _bound(nbytes, B * F * per_frame)
+
+
+def attention_bound(B: int, H: int, D: int, n: int, causal: bool) -> tuple:
+    """Least time on the card for one decode-attention call over n visible
+    keys: each input read once (n int8 K and V rows, key `step`'s from the
+    fresh row in the causal case, their f32 scales, the bias row, q) and
+    the output written once, vs 4 B H n D fp32 flops (q.k and p.v)."""
+    nbytes = 2 * B * H * n * (D + 4) + 2 * B * H * D * 2
+    if causal:
+        nbytes += H * n * 4
+    return _bound(nbytes, 4 * B * H * n * D)
 
 
 def synthetic_song(seconds: float, sr: int, seed: int):
@@ -149,6 +235,201 @@ def synthetic_song(seconds: float, sr: int, seed: int):
     return out / max(1e-6, float(np.abs(out).max())) * 0.8
 
 
+def int8_attention_inputs(L: int, causal: bool, n_sets: int) -> list:
+    """`n_sets` seeded decode-attention inputs on the card at the serving
+    widths, laid out as the decode loop lays them out: q bf16 (B, H, 1, D);
+    int8 K/V (B, H, L, D) through the port's ``_quantize_kv``, for the
+    causal kernel of a contiguous cache buffer (as ``init_kv_cache``) with
+    the fresh int8 rows and a (1, H, 1, L) bias row, for the cross one of
+    a ``_split_heads`` view of a bf16 (B, L, H*D) projection (as
+    ``precompute_cross_kv``: keys H*D bytes apart)."""
+    import torch
+
+    from music2midi_tpu_torch.models.t5 import _quantize_kv, _split_heads
+
+    g = torch.Generator(device="cuda").manual_seed(L + int(causal))
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    B, H, D = B_SERVE, HEADS, D_KV
+    sets = []
+    for _ in range(n_sets):
+        one = [normal(B, H, 1, D).to(torch.bfloat16)]
+        if causal:
+            one += [_quantize_kv(normal(B, H, L, D)),
+                    _quantize_kv(normal(B, H, L, D)),
+                    _quantize_kv(normal(B, H, 1, D)),
+                    _quantize_kv(normal(B, H, 1, D)), normal(1, H, 1, L)]
+        else:
+            one += [_quantize_kv(_split_heads(
+                normal(B, L, H * D).to(torch.bfloat16), H, D))
+                for _ in range(2)]
+            require(one[1][0].stride(2) == H * D,
+                    "cross inputs not in the decode loop's layout")
+        sets.append(one)
+    return sets
+
+
+def dequantized(entry, n: int):
+    """The first n positions of an int8 (values, scales) entry as bf16."""
+    import torch
+
+    vals, scales = entry
+    return (vals[:, :, :n].float() * scales[..., :n].transpose(-1, -2)).to(
+        torch.bfloat16).contiguous()
+
+
+def rotating(calls: list):
+    """One call per invocation, taking `calls` in turn (as the decode
+    loop's layers come, so a timed input is not the one just read)."""
+    it = itertools.cycle(calls)
+    return lambda: next(it)()
+
+
+def time_three(kernel_calls, plain_calls, library_calls, iters=200) -> tuple:
+    """((device, host-inclusive) ms per call) of the kernel, the plain
+    version and the library call (``device_ms``); few enough calls that
+    the launches queued behind the spin kernel stay under the stream's
+    queue depth."""
+    return (device_ms(rotating(kernel_calls), iters),
+            device_ms(rotating(plain_calls), iters // 5),
+            device_ms(rotating(library_calls), iters))
+
+
+def attention_phase(smi: str) -> tuple:
+    """Check and time the two decode-attention kernels -> (int8 entry,
+    cross_t entry) of the kernels line, launches still to fill."""
+    import torch
+    import torch.nn.functional as F
+
+    from music2midi_tpu_torch.ops import decode_attention as da
+
+    def check(got, ref, what) -> float:
+        torch.cuda.synchronize()
+        require(got.shape == ref.shape and got.dtype == torch.bfloat16,
+                f"{what}: {got.shape} {got.dtype} vs {ref.shape}")
+        require(bool(torch.isfinite(got.float()).all()),
+                f"{what}: non-finite kernel output")
+        err = float((got.float() - ref.float()).abs().max())
+        require(err <= ATTN_BAR, f"{what}: kernel vs plain {err} > {ATTN_BAR}")
+        return err
+
+    self_sets = int8_attention_inputs(SELF_LEN, True, N_LAYERS)
+    cross_sets = int8_attention_inputs(ENC_LEN, False, N_LAYERS)
+    cross_t_sets = [(q, da.transpose_cross_entry(k),
+                     da.transpose_cross_entry(v)) for q, k, v in cross_sets]
+    errs = {"int8": 0.0, "cross_t": 0.0}
+    q, k, v, kn, vn, bias = self_sets[0]
+    for step in (0, 63, 127, SELF_LEN - 2):
+        errs["int8"] = max(errs["int8"], check(
+            da.decode_attention_int8(q, k, v, bias, step, kn, vn, True),
+            da.decode_attention_int8_plain(q, k, v, bias, step, kn, vn, True),
+            f"int8 causal step {step}"))
+    q, k, v = cross_sets[0]
+    qt, kt, vt = cross_t_sets[0]
+    for enc_len in (ENC_LEN, 150):
+        errs["int8"] = max(errs["int8"], check(
+            da.decode_attention_int8(q, k, v, None, None, None, None, False,
+                                     enc_len),
+            da.decode_attention_int8_plain(q, k, v, None, None, None, None,
+                                           False, enc_len),
+            f"int8 cross enc_len {enc_len}"))
+        errs["cross_t"] = max(errs["cross_t"], check(
+            da.decode_attention_cross_t(qt, kt, vt, enc_len),
+            da.decode_attention_cross_t_plain(qt, kt, vt, enc_len),
+            f"cross_t enc_len {enc_len}"))
+
+    def self_calls(step):
+        """The views the decode loop passes at `step`: the visible prefix
+        of the cache and the bias row's window, no copies."""
+        n = step + 1
+        out = {"kernel": [], "plain": [], "library": []}
+        for q, k, v, kn, vn, bias in self_sets:
+            args = (q, (k[0][:, :, :n], k[1][..., :n]),
+                    (v[0][:, :, :n], v[1][..., :n]), bias[0, :, 0, :n],
+                    step, kn, vn, True)
+            out["kernel"].append(lambda a=args: da.decode_attention_int8(*a))
+            out["plain"].append(
+                lambda a=args: da.decode_attention_int8_plain(*a))
+            kd, vd = dequantized(k, n), dequantized(v, n)
+            mask = bias[..., :n].to(torch.bfloat16)
+            out["library"].append(
+                lambda q=q, kd=kd, vd=vd, m=mask:
+                F.scaled_dot_product_attention(q, kd, vd, attn_mask=m,
+                                               scale=1.0))
+        return out
+
+    def cross_calls(transposed):
+        out = {"kernel": [], "plain": [], "library": []}
+        for (q, k, v), (_, kt, vt) in zip(cross_sets, cross_t_sets):
+            if transposed:
+                args = (q, kt, vt, ENC_LEN)
+                out["kernel"].append(
+                    lambda a=args: da.decode_attention_cross_t(*a))
+                out["plain"].append(
+                    lambda a=args: da.decode_attention_cross_t_plain(*a))
+            else:
+                args = (q, k, v, None, None, None, None, False, ENC_LEN)
+                out["kernel"].append(
+                    lambda a=args: da.decode_attention_int8(*a))
+                out["plain"].append(
+                    lambda a=args: da.decode_attention_int8_plain(*a))
+            kd, vd = dequantized(k, ENC_LEN), dequantized(v, ENC_LEN)
+            out["library"].append(
+                lambda q=q, kd=kd, vd=vd:
+                F.scaled_dot_product_attention(q, kd, vd, scale=1.0))
+        return out
+
+    timings = {"int8": [], "cross_t": []}
+    for name, what, calls, n, causal in (
+            ("int8", "causal step 127", self_calls(127), 128, True),
+            ("int8", "causal step 1022", self_calls(SELF_LEN - 2),
+             SELF_LEN - 1, True),
+            ("int8", "cross L 190", cross_calls(False), ENC_LEN, False),
+            ("cross_t", "cross L 190", cross_calls(True), ENC_LEN, False)):
+        (ms, host_ms), (plain_ms, plain_host), (library_ms, lib_host) = \
+            time_three(calls["kernel"], calls["plain"], calls["library"])
+        bound_ms, bound_by, nbytes, ops = attention_bound(
+            B_SERVE, HEADS, D_KV, n, causal)
+        timings[name].append({
+            "shape": f"{what}: B {B_SERVE}, H {HEADS}, D {D_KV}, {n} keys",
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "flops": ops, "host_ms": host_ms, "plain_host_ms": plain_host,
+            "library_host_ms": lib_host})
+        print(f"  {name} {what}: device ms={ms:.5f} plain_ms={plain_ms:.5f} "
+              f"library_ms(sdpa, bf16 K/V)={library_ms:.5f} "
+              f"bound_ms={bound_ms:.5f} ({bound_by}; {nbytes} B, {ops} flop)"
+              f"; host-inclusive ms: kernel={host_ms:.5f} "
+              f"plain={plain_host:.5f} library={lib_host:.5f} [{smi}]",
+              flush=True)
+
+    def entry(name, source, replaces, head):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": 0,
+                "max_abs_err": errs[name], **{
+                    k: head[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+                "shape": head["shape"], "timings": timings[name]}
+
+    return (entry("int8", "music2midi_tpu_torch/csrc/decode_attention.cu",
+                  "music2midi_tpu/ops/decode_attention.py:155",
+                  timings["int8"][1]),
+            entry("cross_t", "music2midi_tpu_torch/csrc/decode_attention.cu",
+                  "music2midi_tpu/ops/decode_attention.py:288",
+                  timings["cross_t"][0]))
+
+
+def _wrappers() -> list:
+    from music2midi_tpu_torch.ops import decode_attention as da
+    from music2midi_tpu_torch.ops import mel_cuda
+
+    return [mel_cuda.log_mel_spectrogram_cuda,
+            mel_cuda.log_mel_spectrogram_dft_cuda,
+            da.decode_attention_int8, da.decode_attention_cross_t]
+
+
 def main() -> int:
     import torch
 
@@ -161,13 +442,26 @@ def main() -> int:
     from music2midi_tpu_torch.audio import resample, write_wav
     from music2midi_tpu_torch.calibration import check_midi, render_fixture
     from music2midi_tpu_torch.infer import Music2MIDI
+    from music2midi_tpu_torch.infer.decode import generate_tokens
     from music2midi_tpu_torch.ops import _build
     from music2midi_tpu_torch.ops.detokenize import detokenize
     from music2midi_tpu_torch.ops.mel import LogMelConfig, log_mel_spectrogram
-    from music2midi_tpu_torch.ops.mel_cuda import log_mel_spectrogram_cuda
+    from music2midi_tpu_torch.ops.mel_cuda import (
+        log_mel_spectrogram_cuda,
+        log_mel_spectrogram_dft_cuda,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    wrappers = _wrappers()
+
+    def launches_of(fn) -> dict:
+        """Counts to 0, run fn, read every count just after."""
+        for w in wrappers:
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {w.__name__: w.launches for w in wrappers}
 
     with Phase("environment") as ph:
         kind = torch.cuda.get_device_name(0)
@@ -194,7 +488,8 @@ def main() -> int:
         _build.load()
 
     cfg = LogMelConfig()
-    with Phase("kernel_vs_plain") as ph:
+    mel_entries = {}
+    with Phase("kernel_vs_plain_mel") as ph:
         rng = np.random.default_rng(0)
         S, B, n_real = 48000, 64, 60
         t = np.arange(S) / cfg.sample_rate
@@ -206,69 +501,130 @@ def main() -> int:
                 wave[i] = np.sin(2 * np.pi * 440.0 * t)
         ragged = (rng.normal(size=(4, 41234)) * 0.3).astype(np.float32)
         noise_rows = list(range(0, n_real, 3))
-        max_err = 0.0
-        for w, rows in ((wave, noise_rows), (ragged, [0, 1, 2, 3])):
-            x = torch.from_numpy(w).cuda()
-            got = log_mel_spectrogram_cuda(x, cfg)
-            torch.cuda.synchronize()
-            ref = log_mel_spectrogram(x, cfg)
-            require(got.shape == ref.shape, f"shapes {got.shape} vs {ref.shape}")
-            require(bool(torch.isfinite(got).all()), "non-finite kernel output")
-            err = float((got[rows] - ref[rows]).abs().max())
-            require(err <= 1e-3, f"kernel vs plain max |diff| {err} > 1e-3")
-            max_err = max(max_err, err)
         x = torch.from_numpy(wave).cuda()
-        got = log_mel_spectrogram_cuda(x, cfg)
         ref = log_mel_spectrogram(x, cfg)
-        silence = float((got[2:n_real:3] - math.log(1e-6)).abs().max())
-        require(silence <= 1e-4, f"silence off the log floor by {silence}")
-        tone_k = int(got[1].mean(0).argmax())
-        tone_p = int(ref[1].mean(0).argmax())
-        require(tone_k == tone_p, f"tone argmax bin {tone_k} vs {tone_p}")
-        # tone rows: near-silent mel bins sit at fp32 round-off, so they are
-        # held by argmax only (as the JAX package's tests hold them)
-        tone_kernel_plain = float((got[1:n_real:3] - ref[1:n_real:3]).abs().max())
         lib = stft_log_mel(x, cfg)
         lib_err = float((lib - ref).abs().max())
-        ms = cuda_ms(lambda: log_mel_spectrogram_cuda(x, cfg), 50)
-        plain_ms = cuda_ms(lambda: log_mel_spectrogram(x, cfg), 20)
-        library_ms = cuda_ms(lambda: stft_log_mel(x, cfg), 20)
-        bound_ms, bound_by, nbytes, ops = mel_bound(B, S, cfg)
-        ph.info = (f"shape=({B},{S}) max_abs_err(noise)={max_err:.3e} "
-                   f"silence_err={silence:.2e} tone_bin={tone_k} "
-                   f"tone: kernel-plain={tone_kernel_plain:.3e} "
-                   f"stft_vs_plain={lib_err:.2e} ms={ms:.4f} "
-                   f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-                   f"bound_ms={bound_ms:.4f} ({bound_by}; {nbytes} B, "
-                   f"{ops:.4g} flop) [{smi}]")
-    mel_entry = {
-        "name": "log_mel_fft", "route": "cuda",
-        "source": "music2midi_tpu_torch/csrc/mel_fft.cu",
-        "replaces": "music2midi_tpu/ops/mel_pallas.py:145",
-        "launches": 0, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms,
-    }
+        plain_ms = device_ms(lambda: log_mel_spectrogram(x, cfg), 20)[0]
+        library_ms = device_ms(lambda: stft_log_mel(x, cfg), 20)[0]
+        infos = [f"stft_vs_plain={lib_err:.2e} plain_ms={plain_ms:.4f} "
+                 f"library_ms={library_ms:.4f}"]
+        for name, fn, source, replaces, dft in (
+                ("log_mel_fft", log_mel_spectrogram_cuda,
+                 "music2midi_tpu_torch/csrc/mel_fft.cu",
+                 "music2midi_tpu/ops/mel_pallas.py:148", False),
+                ("log_mel_dft", log_mel_spectrogram_dft_cuda,
+                 "music2midi_tpu_torch/csrc/mel_dft.cu",
+                 "music2midi_tpu/ops/mel_pallas.py:342", True)):
+            max_err = 0.0
+            for w, rows in ((wave, noise_rows), (ragged, [0, 1, 2, 3])):
+                xw = torch.from_numpy(w).cuda()
+                got = fn(xw, cfg)
+                torch.cuda.synchronize()
+                refw = log_mel_spectrogram(xw, cfg)
+                require(got.shape == refw.shape,
+                        f"{name}: shapes {got.shape} vs {refw.shape}")
+                require(bool(torch.isfinite(got).all()),
+                        f"{name}: non-finite kernel output")
+                err = float((got[rows] - refw[rows]).abs().max())
+                require(err <= 1e-3,
+                        f"{name}: kernel vs plain max |diff| {err} > 1e-3")
+                max_err = max(max_err, err)
+            got = fn(x, cfg)
+            silence = float((got[2:n_real:3] - math.log(1e-6)).abs().max())
+            require(silence <= 1e-4,
+                    f"{name}: silence off the log floor by {silence}")
+            tone_k = int(got[1].mean(0).argmax())
+            tone_p = int(ref[1].mean(0).argmax())
+            require(tone_k == tone_p,
+                    f"{name}: tone argmax bin {tone_k} vs {tone_p}")
+            # tone rows: near-silent mel bins sit at fp32 round-off, so
+            # they are held by argmax only (as the JAX package's tests
+            # hold them)
+            tone_err = float((got[1:n_real:3] - ref[1:n_real:3]).abs().max())
+            ms = device_ms(lambda: fn(x, cfg), 50 if not dft else 10)[0]
+            bound_ms, bound_by, nbytes, ops = mel_bound(B, S, cfg)
+            mel_entries[name] = {
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": 0, "max_abs_err": max_err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms,
+                "shape": f"wave ({B}, {S}) f32 -> ({B}, 188, {cfg.n_mels})"}
+            algo = ""
+            if dft:
+                algo_ms, algo_by, _, algo_ops = mel_bound(B, S, cfg, True)
+                mel_entries[name]["algorithm_bound_ms"] = algo_ms
+                algo = (f" algorithm_bound_ms(direct DFT)={algo_ms:.4f} "
+                        f"({algo_by}; {algo_ops:.4g} flop)")
+            infos.append(
+                f"{name}: max_abs_err(noise)={max_err:.3e} "
+                f"silence_err={silence:.2e} tone_bin={tone_k} "
+                f"tone: kernel-plain={tone_err:.3e} ms={ms:.4f} "
+                f"bound_ms={bound_ms:.4f} ({bound_by}; {nbytes} B, "
+                f"{ops:.4g} flop){algo}")
+        ph.info = f"shape=({B},{S}) " + " | ".join(infos) + f" [{smi}]"
+
+    with Phase("kernel_vs_plain_attention") as ph:
+        int8_entry, cross_t_entry = attention_phase(smi)
+        ph.info = (f"max_abs_err int8={int8_entry['max_abs_err']:.3e} "
+                   f"cross_t={cross_t_entry['max_abs_err']:.3e} "
+                   f"(bar {ATTN_BAR})")
 
     fixture, fixture_sr = render_fixture()
     with Phase("serving_path") as ph:
         engine = Music2MIDI.from_npz(RECORD, dtype=torch.bfloat16)
         require(engine.device.type == "cuda", "engine not on the card")
+        cross_engine = Music2MIDI.from_npz(RECORD, dtype=torch.bfloat16)
+        cross_engine.pallas_cross = True
+        infos = []
         with tempfile.TemporaryDirectory() as td:
             path = str(Path(td) / "a4_22050.wav")
             write_wav(path, fixture, fixture_sr)
-            log_mel_spectrogram_cuda.launches = 0
-            midi = engine.generate(audio_path=path)
-            torch.cuda.synchronize()
-            launches = log_mel_spectrogram_cuda.launches
-        ok, detail = check_midi(midi)
-        require(ok, f"calibration gate failed on the card: {detail}")
-        require(launches > 0, "the serving path did not launch the mel kernel")
-        mel_entry["launches"] = launches
-        n_notes = len(midi.instruments[0].notes)
-        ph.info = (f"check_midi=pass ({detail}) notes={n_notes} "
-                   f"mel_kernel_launches={launches} "
-                   f"decode={engine.last_decode_stats[0]['steps']} steps")
+            for eng, label in ((engine, "serving"),
+                               (cross_engine, "pallas_cross")):
+                midi, n = launches_of(lambda: eng.generate(audio_path=path))
+                ok, detail = check_midi(midi)
+                require(ok, f"{label}: calibration gate failed on the card: "
+                            f"{detail}")
+                require(n["log_mel_spectrogram_cuda"] > 0,
+                        f"{label}: the mel kernel was not launched")
+                require(n["decode_attention_int8"] > 0,
+                        f"{label}: the int8 decode-attention kernel was not "
+                        "launched")
+                if label == "serving":
+                    mel_entries["log_mel_fft"]["launches"] = \
+                        n["log_mel_spectrogram_cuda"]
+                    int8_entry["launches"] = n["decode_attention_int8"]
+                else:
+                    require(n["decode_attention_cross_t"] > 0,
+                            "pallas_cross: the transposed-cross kernel was "
+                            "not launched")
+                    cross_t_entry["launches"] = n["decode_attention_cross_t"]
+                infos.append(
+                    f"{label}: check_midi=pass ({detail}) "
+                    f"notes={len(midi.instruments[0].notes)} "
+                    f"decode={eng.last_decode_stats[0]['steps']} steps "
+                    f"launches={n}")
+        ph.info = " | ".join(infos)
+
+    song = synthetic_song(180.0, 16000, seed=7)
+    with Phase("dft_mel_path") as ph:
+        # the direct-DFT entry point on the song's chunk batch: no engine
+        # path calls it (as in the JAX package, where only tests do)
+        batch, cond = engine._pad_batch(engine._chunk_waveform(song))
+        wave = engine._device_wave(batch)
+        mel_dft, n = launches_of(
+            lambda: log_mel_spectrogram_dft_cuda(wave, cfg))
+        require(n["log_mel_spectrogram_dft_cuda"] > 0,
+                "the direct-DFT mel kernel was not launched")
+        mel_entries["log_mel_dft"]["launches"] = \
+            n["log_mel_spectrogram_dft_cuda"]
+        mel_fft = engine._log_mel(wave)
+        require(mel_dft.shape == mel_fft.shape, "DFT mel shape")
+        diff = float((mel_dft - mel_fft).abs().max())
+        diff_mean = float((mel_dft - mel_fft).abs().mean())
+        ph.info = (f"song batch {tuple(wave.shape)} launches={n} "
+                   f"dft_vs_serving_mel max={diff:.3e} mean={diff_mean:.3e}")
 
     with Phase("fp32_parity") as ph:
         chunks16 = resample(fixture, fixture_sr, 16000)
@@ -278,18 +634,17 @@ def main() -> int:
             toks[dev] = eng.sample_tokens_batched(eng._chunk_waveform(chunks16))
         same = total = 0
         for a, b in zip(toks["cuda"], toks["cpu"]):
-            n = max(len(a), len(b))
-            pa = np.zeros(n, np.int64)
-            pb = np.zeros(n, np.int64)
+            n_tok = max(len(a), len(b))
+            pa = np.zeros(n_tok, np.int64)
+            pb = np.zeros(n_tok, np.int64)
             pa[:len(a)], pb[:len(b)] = a, b
             same += int((pa == pb).sum())
-            total += n
+            total += n_tok
         agree = same / total
         require(agree >= 0.99, f"fp32 cuda-vs-cpu token agreement {agree}")
         ph.info = f"token_agreement={agree:.6f} ({same}/{total} tokens)"
 
     with Phase("song_timing") as ph:
-        song = synthetic_song(180.0, 16000, seed=7)
         times = []
         n_notes = 0
         for i in range(4):
@@ -305,8 +660,6 @@ def main() -> int:
         stats = engine.last_decode_stats
         # per-stage time of the song's one batch through the engine's own
         # stage methods, CUDA events
-        batch, cond = engine._pad_batch(engine._chunk_waveform(song))
-        wave = engine._device_wave(batch)
         mel = engine._log_mel(wave)
         enc = engine._encoder(mel, cond)
         tokens, _ = engine._decode(enc)
@@ -320,6 +673,26 @@ def main() -> int:
         row_steps = stats[0]["row_steps"]
         at_cap = [i for i, s in enumerate(row_steps)
                   if s >= engine.decode_max_length - 1]
+        # the decode stage with the attention kernels off and on, in turns
+        # (off, on, on, off), on the same encoder output
+        dec = {}
+        for on in (False, True, True, False):
+            dcfg = engine._dcfg()._replace(pallas_attention=on)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks, lens = generate_tokens(engine.model, enc,
+                                         engine.t5_config, dcfg)
+            torch.cuda.synchronize()
+            dec.setdefault(on, []).append(
+                (time.perf_counter() - t0, toks, lens))
+        (_, t_off, l_off), (_, t_on, l_on) = dec[False][0], dec[True][0]
+        t_off, t_on = t_off.cpu().numpy(), t_on.cpu().numpy()
+        l_off, l_on = l_off.cpu().numpy(), l_on.cpu().numpy()
+        agree_n = agree_d = 0
+        for r in range(stats[0]["real_rows"]):
+            m = int(max(l_off[r], l_on[r]))
+            agree_n += int((t_off[r, :m] == t_on[r, :m]).sum())
+            agree_d += m
         ph.info = (f"p50_song_latency_s={p50:.4f} "
                    f"songs_per_min={60.0 / p50:.3f} runs_s={times} "
                    f"notes={n_notes} chunks={stats[0]['real_rows']} "
@@ -329,10 +702,49 @@ def main() -> int:
                    f"stage_ms(transport={st_wave:.3f}, mel={st_mel:.3f}, "
                    f"encoder={st_enc:.3f}, "
                    f"decode={st_dec:.3f}, detokenize={st_det:.3f}) "
-                   f"[{smi}]")
+                   f"decode_kernels_off_s={[d[0] for d in dec[False]]} "
+                   f"decode_kernels_on_s={[d[0] for d in dec[True]]} "
+                   f"steps_off={int(l_off.max()) - 1} "
+                   f"steps_on={int(l_on.max()) - 1} "
+                   f"greedy_token_agreement_on_vs_off="
+                   f"{agree_n / agree_d:.6f} ({agree_n}/{agree_d}) [{smi}]")
+
+    with Phase("batch_serving") as ph:
+        songs = [song] + [synthetic_song(180.0, 16000, seed=s)
+                          for s in (8, 9, 10)]
+        conds = [[0, 0], [1, 1], [2, 2], [3, 0]]
+        t0 = time.perf_counter()
+        engine.warmup([128])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        runs = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            midis = engine.generate_batch(songs, cond_indices=conds)
+            torch.cuda.synchronize()
+            if i > 0:
+                runs.append(time.perf_counter() - t0)
+        notes = [len(m.instruments[0].notes) for m in midis]
+        require(all(k > 0 for k in notes), f"a song gave no notes: {notes}")
+        bstats = [{k: s[k] for k in ("batch_width", "real_rows", "steps",
+                                     "tokens_real")}
+                  for s in engine.last_decode_stats]
+        med = float(np.median(runs))
+        single = {(n.start, n.end, n.pitch)
+                  for n in midi.instruments[0].notes}
+        batched = {(n.start, n.end, n.pitch)
+                   for n in midis[0].instruments[0].notes}
+        ph.info = (f"warmup_s={warm_s:.3f} runs_s={runs} "
+                   f"songs_per_min={4 * 60.0 / med:.3f} notes={notes} "
+                   f"last_decode_stats={bstats} "
+                   f"song0_vs_generate: notes {len(batched)} vs "
+                   f"{len(single)}, equal {len(batched & single)} [{smi}]")
 
     with Phase("kernels"):
-        print(json.dumps({"kernels": [mel_entry]}), flush=True)
+        print(json.dumps({"kernels": [
+            mel_entries["log_mel_fft"], mel_entries["log_mel_dft"],
+            int8_entry, cross_t_entry]}), flush=True)
 
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

@@ -9,6 +9,13 @@ The cache is allocated once at ``max_length`` instead of growing in phases
 (64 -> 128 -> ...) as the JAX loop does; each step attends only over the
 positions written so far, so the greedy tokens are the same.  The EOS
 check reads one boolean back to the host every step.
+
+``DecodeConfig.pallas_attention`` and ``pallas_cross`` keep the JAX field
+names: they route the int8 attention blocks through the decode-attention
+kernels (``ops/decode_attention.py``), which run as CUDA kernels on CUDA
+tensors and as their plain versions on CPU tensors.  The JAX package's
+conditions of a TPU backend and a batch multiple of its block do not
+apply.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from ..models.t5 import (
     init_kv_cache,
     precompute_cross_kv,
     prepare_decode_params,
+    transpose_cross_kv,
 )
 
 
@@ -32,6 +40,12 @@ class DecodeConfig(NamedTuple):
     max_length: int = 1024  # total length including the start token
     suppress_tokens: tuple = ()  # token ids masked to -inf before argmax
     quantize_kv: bool = False  # int8 self- and cross-KV (serving mode)
+    # with quantize_kv: every int8 attention block through
+    # decode_attention_int8 (the CUDA kernel on a CUDA tensor)
+    pallas_attention: bool = False
+    # with quantize_kv: the cross-KV stored transposed (B, H, D, L) once
+    # per generation, and the cross blocks through decode_attention_cross_t
+    pallas_cross: bool = False
 
 
 @torch.no_grad()
@@ -48,6 +62,9 @@ def generate_tokens(
     max_len = dcfg.max_length
     cross_kv = precompute_cross_kv(model, encoder_hidden, cfg,
                                    quantize=dcfg.quantize_kv)
+    if dcfg.pallas_cross and dcfg.quantize_kv:
+        cross_kv = transpose_cross_kv(cross_kv)
+    use_pallas = dcfg.pallas_attention and dcfg.quantize_kv
     dparams = prepare_decode_params(model, cfg)
     bias_rows = decoder_bias_rows(dparams["rel_bias"], max_len, cfg)
     cache = init_kv_cache(B, max_len, cfg, quantize=dcfg.quantize_kv,
@@ -61,7 +78,7 @@ def generate_tokens(
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     for step in range(max_len - 1):
         logits = decode_step(dparams, token, step, cache, cross_kv, cfg,
-                             bias_rows)
+                             bias_rows, use_pallas)
         if suppress:
             logits[:, suppress] = -float("inf")
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)

@@ -1,7 +1,9 @@
 """Whole-song inference: audio file or waveform -> MIDI piano cover.
 
-Port of ``music2midi_tpu/infer/pipeline.py`` (``Music2MIDI``) for the
-single-song serving path, ``generate`` -> ``sample_notes``:
+Port of ``music2midi_tpu/infer/pipeline.py`` (``Music2MIDI``): the
+single-song path ``generate`` -> ``sample_notes``, the throughput path
+``generate_batch`` (many songs in one stream of chunk batches) and
+``warmup``:
 
   * the song is zero-padded to a multiple of the 3-s window and reshaped
     to a (num_chunks, 48000) batch; batches are padded up to a bucket size
@@ -13,12 +15,14 @@ single-song serving path, ``generate`` -> ``sample_notes``:
 
 Two modes, as in the JAX package: ``dtype=torch.float32`` is the parity
 mode (``torch.fft`` mel, no quantization); ``dtype=torch.bfloat16`` is the
-serving mode (the hand-written CUDA mel kernel on a CUDA device, int8 KV).
+serving mode (on a CUDA device the hand-written CUDA mel kernel, and int8
+KV with every attention block of the decode loop in the decode-attention
+kernel; ``pallas_cross`` adds the transposed-cross kernel).
 
 Everything runs on ``device`` (``cuda`` unless the caller passes
-``device="cpu"``); no threads are started.  Not ported yet: the batched
-``generate_batch`` server path, ``from_torch_checkpoint``, sampling
-decode, input dither.
+``device="cpu"``); no threads are started.  Not ported yet:
+``from_torch_checkpoint``, sampling decode, input dither, the
+``mel_noise_floor`` setter.
 """
 
 from __future__ import annotations
@@ -106,6 +110,10 @@ class Music2MIDI:
         # per batch of the last call: {"batch_width", "real_rows", "steps"
         # (decode steps run = longest row), "tokens_real", "row_steps"}
         self.last_decode_stats: List[dict] = []
+        # serving mode: the cross blocks through the transposed-cross
+        # kernel (ops/decode_attention.py::decode_attention_cross_t) over a
+        # cross-KV stored (B, H, D, L); off as in the JAX engine
+        self.pallas_cross: bool = False
 
     # ------------------------------------------------------------------ #
     # constructors                                                        #
@@ -135,10 +143,22 @@ class Music2MIDI:
 
     def _dcfg(self) -> DecodeConfig:
         """int8 self- and cross-KV in serving mode, none in the fp32 parity
-        mode."""
+        mode.
+
+        With int8 KV every attention block goes through the
+        decode-attention kernel (``pallas_attention``), where the JAX
+        engine leaves its Pallas kernel off: on the TPU that kernel lost to
+        XLA's fusion (``music2midi_tpu/ops/decode_attention.py``), while on
+        the H100 the decode loop is bound by the host's launches (PERF.md,
+        section 5) and one launch of the kernel replaces about ten of the
+        plain chain.  ``pallas_cross`` moves the cross blocks to the
+        transposed-cross kernel."""
+        int8 = self.t5_config.dtype != torch.float32
         return DecodeConfig(
             max_length=self.decode_max_length,
-            quantize_kv=self.t5_config.dtype != torch.float32,
+            quantize_kv=int8,
+            pallas_attention=int8,
+            pallas_cross=int8 and self.pallas_cross,
         )
 
     def _encode_wave(self, batch: np.ndarray) -> np.ndarray:
@@ -191,12 +211,19 @@ class Music2MIDI:
     # inference                                                           #
     # ------------------------------------------------------------------ #
 
+    def _split_size(self) -> int:
+        """Samples per chunk (3 s at the model rate)."""
+        return int(self.config.model.sample_rate
+                   * float(self.config.dataset.segment_duration))
+
+    def _n_steps(self) -> int:
+        """Token time steps per chunk: a chunk's offset in its song."""
+        return round(float(self.config.dataset.segment_duration)
+                     / self.tokenizer.time_step)
+
     def _chunk_waveform(self, waveform: np.ndarray) -> np.ndarray:
         """Zero-pad to a 3-s multiple and reshape to (n_chunks, split)."""
-        split_size = int(
-            self.config.model.sample_rate
-            * float(self.config.dataset.segment_duration)
-        )
+        split_size = self._split_size()
         wave = np.asarray(waveform, dtype=np.float32)
         n_chunks = max(1, -(-len(wave) // split_size))
         padded = np.zeros(n_chunks * split_size, dtype=np.float32)
@@ -219,27 +246,32 @@ class Music2MIDI:
             cond = np.asarray(cond_index, dtype=np.int64)
         return batch, np.broadcast_to(cond, (b, len(cond))).copy()
 
+    def _run_batch(self, batch: np.ndarray, cond: np.ndarray,
+                   n: int) -> torch.Tensor:
+        """A bucket-padded batch whose first n rows are real -> their tokens
+        (n, width) on the device, the columns trimmed to the longest real
+        row (the rest is PAD); appends the batch's decode stats."""
+        tokens, lengths = self._encode_and_generate(batch, cond)
+        len_h = lengths.cpu().numpy()
+        self.last_decode_stats.append({
+            "batch_width": int(len(batch)),
+            "real_rows": int(n),
+            "steps": int(len_h.max()) - 1,
+            "tokens_real": int(len_h[:n].sum()) - n,
+            "row_steps": (len_h[:n] - 1).tolist(),
+        })
+        return tokens[:n, :int(len_h[:n].max())]
+
     def _token_batches(self, chunks: np.ndarray,
                        cond_index: Optional[Sequence[int]] = None):
-        """Yield (global chunk start, tokens (n, width)) per batch:
-        bucket-padded on the device, pad rows trimmed, and the columns
-        trimmed to the longest real row (the rest is PAD)."""
+        """Yield (global chunk start, tokens (n, width)) per batch of one
+        song's chunks (``_run_batch``)."""
         max_bs = int(self.config.inference.batch_size)
         self.last_decode_stats = []
         for start in range(0, len(chunks), max_bs):
             real = chunks[start:start + max_bs]
             batch, cond_batch = self._pad_batch(real, cond_index)
-            n, b = len(real), len(batch)
-            tokens, lengths = self._encode_and_generate(batch, cond_batch)
-            len_h = lengths.cpu().numpy()
-            self.last_decode_stats.append({
-                "batch_width": int(b),
-                "real_rows": int(n),
-                "steps": int(len_h.max()) - 1,
-                "tokens_real": int(len_h[:n].sum()) - n,
-                "row_steps": (len_h[:n] - 1).tolist(),
-            })
-            yield start, tokens[:n, :int(len_h[:n].max())]
+            yield start, self._run_batch(batch, cond_batch, len(real))
 
     def generate(
         self,
@@ -270,7 +302,7 @@ class Music2MIDI:
         =False`` takes the host tokenizer instead (the cross-check)."""
         split_duration = float(self.config.dataset.segment_duration)
         chunks = self._chunk_waveform(waveform)
-        n_steps = round(split_duration / self.tokenizer.time_step)
+        n_steps = self._n_steps()
         if self.device_detokenize:
             parts: List[np.ndarray] = []
             for start, tokens in self._token_batches(chunks, cond_index):
@@ -287,6 +319,104 @@ class Music2MIDI:
         return self.tokenizer.decode(
             tokens_list, mode="sequential", duration_per_batch=split_duration
         )
+
+    def generate_batch(
+        self,
+        waveforms: Optional[Sequence[np.ndarray]] = None,
+        cond_indices: Optional[Sequence[Optional[Sequence[int]]]] = None,
+        audio_paths: Optional[Sequence[Union[str, Path]]] = None,
+    ) -> List[MidiFile]:
+        """Throughput serving: many songs -> one MidiFile per song, in song
+        order.
+
+        All songs' 3-s chunks go into ONE stream of batches of
+        ``inference.batch_size`` chunks, each dispatched as soon as it is
+        full, so batches cross song boundaries (a 3-minute song alone fills
+        half a 128-wide batch).  Conditioning is per chunk row, from its
+        song's entry of ``cond_indices`` (None: all zeros); the rows that
+        pad the last batch to its bucket get zero audio and zero
+        conditioning.  Each row's time offset is its chunk index within
+        its own song.  ``audio_paths`` (WAV) are loaded one at a time as
+        the stream reaches them; no thread is started.
+        ``last_decode_stats`` holds one entry per dispatched batch."""
+        if (waveforms is None) == (audio_paths is None):
+            raise ValueError("pass exactly one of waveforms / audio_paths")
+        n_songs = len(waveforms if waveforms is not None else audio_paths)
+        if cond_indices is None:
+            cond_indices = [None] * n_songs
+        elif len(cond_indices) != n_songs:
+            raise ValueError(f"cond_indices has {len(cond_indices)} entries "
+                             f"for {n_songs} songs")
+        if audio_paths is not None:
+            model_sr = int(self.config.model.sample_rate)
+            waves = (audio.load(p, sr=model_sr)[0] for p in audio_paths)
+        else:
+            waves = iter(waveforms)
+        max_bs = int(self.config.inference.batch_size)
+        n_steps = self._n_steps()
+        n_cond = self.num_conditioning
+        self.last_decode_stats = []
+        per_chunk: List[np.ndarray] = []
+        spans: List[tuple] = []
+        rows: List[np.ndarray] = []
+        conds: List[np.ndarray] = []
+        local_idx: List[int] = []
+
+        def dispatch():
+            n = len(rows)
+            b = _bucket(n, max_bs)
+            batch = np.zeros((b, rows[0].shape[0]), np.float32)
+            batch[:n] = np.stack(rows)
+            cond = np.zeros((b, n_cond), np.int64)
+            cond[:n] = np.stack(conds)
+            tokens = self._run_batch(batch, cond, n)
+            start_idx = torch.as_tensor(local_idx, device=tokens.device) \
+                * n_steps
+            per_chunk.extend(detokenize_to_host(tokens, start_idx,
+                                                self.tokenizer.time_step))
+            rows.clear()
+            conds.clear()
+            local_idx.clear()
+
+        n_total = 0
+        for wave, cond in zip(waves, cond_indices):
+            song_chunks = self._chunk_waveform(wave)
+            c = (np.zeros(n_cond, np.int64) if cond is None
+                 else np.asarray(cond, np.int64))
+            spans.append((n_total, n_total + len(song_chunks)))
+            n_total += len(song_chunks)
+            for k, row in enumerate(song_chunks):
+                rows.append(row)
+                conds.append(c)
+                local_idx.append(k)
+                if len(rows) == max_bs:
+                    dispatch()
+        if rows:
+            dispatch()
+        out = []
+        for start, end in spans:
+            parts = per_chunk[start:end]
+            out.append(numpy_to_midi(
+                np.concatenate(parts) if parts else np.zeros((0, 4))))
+        return out
+
+    def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
+        """Run each batch width a serving process will use once, on
+        silence, before the first request: builds the CUDA kernels (at
+        their first use) and warms PyTorch's caching allocator and the
+        matmul libraries.  Per bucket b, a chunk count (default: every
+        bucket up to ``inference.batch_size``, and that size itself), one
+        silent song of b chunks through ``generate_batch`` and through
+        ``generate``, as the JAX engine's warmup runs both of its
+        programs."""
+        max_bs = int(self.config.inference.batch_size)
+        if buckets is None:
+            buckets = {b for b in _BUCKET_SIZES if b <= max_bs} | {max_bs}
+        split = self._split_size()
+        for b in sorted(set(buckets)):
+            silent = np.zeros(b * split, dtype=np.float32)
+            self.generate_batch([silent])
+            self.generate(audio_y=silent)
 
     def sample_tokens_batched(self, chunks: np.ndarray,
                               cond_index: Optional[Sequence[int]] = None

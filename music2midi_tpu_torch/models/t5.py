@@ -24,6 +24,13 @@ the cache only.  That is the JAX package's causal mask (-1e9 on keys after
 ``step``, which underflow to exactly zero probability) without the masked
 columns.  The cross-KV is not padded to a multiple of 128: that pad is a
 TPU lane-layout choice, and the unpadded keys give the same outputs.
+
+With ``use_pallas`` the int8 attention blocks of ``decode_step`` go
+through the decode-attention kernels of ``ops/decode_attention.py`` (the
+JAX package's Pallas route, same flag name); a transposed cross-KV
+(``CrossKV.transposed``) always takes the transposed-cross kernel.  Those
+wrappers run the CUDA kernels on CUDA tensors and their plain versions on
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -34,6 +41,12 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from ..ops.decode_attention import (
+    decode_attention_cross_t,
+    decode_attention_int8,
+    transpose_cross_entry,
+)
 
 
 class T5Config(NamedTuple):
@@ -439,9 +452,23 @@ def _attention_int8(
 
 
 class CrossKV(NamedTuple):
-    """Per-layer cross-attention (K, V), each a tensor or an int8 pair."""
+    """Per-layer cross-attention (K, V), each a tensor or an int8 pair;
+    ``transposed``: int8 values stored (B, H, D, L) for the
+    transposed-cross kernel (``transpose_cross_kv``)."""
     layers: list
     enc_len: int
+    transposed: bool = False
+
+
+def transpose_cross_kv(cross_kv: CrossKV) -> CrossKV:
+    """An int8 CrossKV with its values stored (B, H, D, L): one copy per
+    generation, as the JAX package's ``pallas_cross`` route makes."""
+    if not all(isinstance(k, tuple) for k, _ in cross_kv.layers):
+        raise ValueError("the transposed cross layout needs an int8 cross-KV")
+    return cross_kv._replace(layers=[
+        (transpose_cross_entry(k), transpose_cross_entry(v))
+        for k, v in cross_kv.layers
+    ], transposed=True)
 
 
 @torch.no_grad()
@@ -519,17 +546,19 @@ def decoder_bias_rows(rel_bias: torch.Tensor, max_len: int,
     return rel_bias[buckets].transpose(0, 1)
 
 
-def _write_kv(entry, new: torch.Tensor, step: int, new_q=None) -> None:
+def _write_kv(entry, new: torch.Tensor, step: int):
     """Write this step's (B, H, 1, D) K or V row into a cache entry, in
     place: a plain buffer, or an int8 (values, scales) pair (the row is
-    quantized with its own per-(B, H) scale)."""
+    quantized with its own per-(B, H) scale).  -> the quantized row and
+    its scale for an int8 entry, else None."""
     if isinstance(entry, tuple):
         vals, scales = entry
-        q8, s = new_q if new_q is not None else _quantize_kv(new)
+        q8, s = _quantize_kv(new)
         vals[:, :, step:step + 1] = q8
         scales[:, :, :, step:step + 1] = s
-    else:
-        entry[:, :, step:step + 1] = new
+        return q8, s
+    entry[:, :, step:step + 1] = new
+    return None
 
 
 def _prefix(entry, n: int):
@@ -549,33 +578,49 @@ def decode_step(
     cross_kv: CrossKV,
     cfg: T5Config,
     bias_rows: torch.Tensor,  # decoder_bias_rows(...)
+    use_pallas: bool = False,  # decode-attention kernels for int8 caches
 ) -> torch.Tensor:
     """One incremental decoder step -> logits (B, vocab).  Writes this
-    step's K/V into ``kv_cache`` at ``step`` and attends over [0, step]."""
+    step's K/V into ``kv_cache`` at ``step`` and attends over [0, step].
+
+    Routes, as the JAX ``decode_step``: with ``use_pallas`` an int8 self
+    cache goes through ``decode_attention_int8(causal=True)`` and an int8
+    cross-KV through ``decode_attention_int8(causal=False)``; a transposed
+    cross-KV always goes through ``decode_attention_cross_t``; otherwise
+    ``_attention_int8`` (int8) or ``attention``.  The kernels are handed
+    views of the cache buffers, never copies."""
     dt = cfg.dtype
     H, D = cfg.num_heads, cfg.d_kv
     x = dparams["embedding"][token][:, None]  # (B, 1, d_model)
     n = step + 1
     L = bias_rows.shape[1]
-    bias_row = bias_rows[:, L - n:][None, :, None, :]  # (1, H, 1, n)
+    bias_2d = bias_rows[:, L - n:]  # (H, n): key j at column j
+    bias_row = bias_2d[None, :, None, :]  # (1, H, 1, n)
     for i, layer in enumerate(dparams["layers"]):
         h = rms_norm(x, layer["ln1"], cfg.layer_norm_epsilon)
         qkv = _proj(h, layer["sa_qkv"], dt)
         q, k_new, v_new = (_split_heads(p, H, D) for p in qkv.chunk(3, dim=-1))
         k_entry, v_entry = kv_cache[i]
-        _write_kv(k_entry, k_new, step)
-        _write_kv(v_entry, v_new, step)
-        if isinstance(k_entry, tuple):
-            h = _attention_int8(q, _prefix(k_entry, n), _prefix(v_entry, n),
-                                bias_row, None, dt)
+        k_newq = _write_kv(k_entry, k_new, step)
+        v_newq = _write_kv(v_entry, v_new, step)
+        k_seen, v_seen = _prefix(k_entry, n), _prefix(v_entry, n)
+        if k_newq is not None and use_pallas:
+            h = decode_attention_int8(q, k_seen, v_seen, bias_2d, step,
+                                      k_newq, v_newq, causal=True)
+        elif k_newq is not None:
+            h = _attention_int8(q, k_seen, v_seen, bias_row, None, dt)
         else:
-            h = attention(q, _prefix(k_entry, n), _prefix(v_entry, n),
-                          bias_row, None, dt)
+            h = attention(q, k_seen, v_seen, bias_row, None, dt)
         x = x + _proj(_merge_heads(h), layer["sa_o"], dt)
         h = rms_norm(x, layer["ln2"], cfg.layer_norm_epsilon)
         q = _split_heads(_proj(h, layer["ca_q"], dt), H, D)
         ck, cv = cross_kv.layers[i]
-        if isinstance(ck, tuple):
+        if cross_kv.transposed:
+            a = decode_attention_cross_t(q, ck, cv, enc_len=cross_kv.enc_len)
+        elif isinstance(ck, tuple) and use_pallas:
+            a = decode_attention_int8(q, ck, cv, None, None, None, None,
+                                      causal=False, enc_len=cross_kv.enc_len)
+        elif isinstance(ck, tuple):
             a = _attention_int8(q, ck, cv, None, None, dt)
         else:
             a = attention(q, ck, cv, None, None, dt)

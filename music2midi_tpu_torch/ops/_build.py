@@ -1,10 +1,10 @@
 """Build and load the package's hand-written CUDA kernels.
 
-All of ``music2midi_tpu_torch/csrc/*.cu`` is compiled by ONE ``nvcc``
-invocation into one shared library with a plain C interface, which is
-loaded with ``ctypes``.  No PyTorch headers are included, so the build
-takes seconds rather than the minutes a ``torch.utils.cpp_extension``
-build takes.
+Each of ``music2midi_tpu_torch/csrc/*.cu`` is compiled by its own
+``nvcc -c``, all started together, and one more ``nvcc`` links the objects
+into one shared library with a plain C interface, which is loaded with
+``ctypes``.  No PyTorch headers are included, so the build takes seconds
+rather than the minutes a ``torch.utils.cpp_extension`` build takes.
 
 The build runs at first use, never at import, into ``_build/`` next to
 this package (listed in ``.gitignore``).  The library's file name carries
@@ -29,8 +29,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _c_void_p = ctypes.c_void_p
@@ -41,6 +40,10 @@ _c_float = ctypes.c_float
 # c_void_p (a bare Python int would be passed as a 32-bit int)
 _SIGNATURES = {
     "m2m_log_mel_fft": [_c_void_p] * 8 + [_c_int] * 6 + [_c_float, _c_void_p],
+    "m2m_log_mel_dft": [_c_void_p] * 8 + [_c_int] * 6 + [_c_float, _c_void_p],
+    # (pointer to the argument struct, number of blocks, stream)
+    "m2m_decode_attention_int8": [_c_void_p, _c_int, _c_void_p],
+    "m2m_decode_attention_cross_t": [_c_void_p, _c_int, _c_void_p],
 }
 
 
@@ -91,31 +94,51 @@ def _digest(sources: list) -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list) -> str:
+    """Start every command at once, wait for all; raise on any failure.
+    -> their output, in order."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (exit {proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(logs)
+
+
 def build() -> BuildInfo:
-    """Compile csrc/*.cu (if this exact source set is not built yet)."""
+    """Compile csrc/*.cu (if this exact source set is not built yet): one
+    ``nvcc -c`` per source in parallel, then one link."""
     global _info
     if _info is not None:
         return _info
     sources = _sources()
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    lib_path = BUILD_DIR / f"libm2m_kernels_{_digest(sources)}.so"
+    digest = _digest(sources)
+    lib_path = BUILD_DIR / f"libm2m_kernels_{digest}.so"
     if lib_path.is_file():
         _info = BuildInfo(lib_path, 0.0, True, "")
         return _info
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj_dir = BUILD_DIR / f"obj_{digest}_{os.getpid()}"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    objs = [obj_dir / f"{src.stem}.o" for src in sources]
     tmp_path = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp_path), *map(str, sources)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                    for src, obj in zip(sources, objs)])
+    log += _run_all([[nvcc, "-shared", "-o", str(tmp_path),
+                      *map(str, objs)]])
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{log}"
-        )
     os.replace(tmp_path, lib_path)
+    shutil.rmtree(obj_dir, ignore_errors=True)
     _info = BuildInfo(lib_path, seconds, False, log)
     return _info
 

@@ -125,12 +125,17 @@ def log_mel_spectrogram_fast(
     from .mel_cuda import log_mel_spectrogram_cuda
 
     out = log_mel_spectrogram_cuda(wave.to(torch.float32).contiguous(), cfg)
-    if cfg.noise_floor_sigma > 0.0:
-        # the kernel clamps at log_floor; the per-bin floor applies as a
-        # log-domain max, equal to the power-domain max (log is monotonic)
-        floor = torch.from_numpy(np.log(noise_mel_floor(cfg))).to(out.device)
-        out = torch.maximum(out, floor)
-    return out
+    return apply_noise_floor(out, cfg)
+
+
+def apply_noise_floor(log_mel: torch.Tensor, cfg: LogMelConfig) -> torch.Tensor:
+    """The per-bin noise floor on a kernel's output, which clamps at
+    log_floor only: a log-domain max, equal to the power-domain max of the
+    plain version (log is monotonic).  A no-op when the floor is off."""
+    if cfg.noise_floor_sigma <= 0.0:
+        return log_mel
+    floor = torch.from_numpy(np.log(noise_mel_floor(cfg))).to(log_mel.device)
+    return torch.maximum(log_mel, floor)
 
 
 def log_mel_config_from(config) -> LogMelConfig:

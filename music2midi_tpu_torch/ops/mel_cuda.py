@@ -1,12 +1,17 @@
-"""The fused log-mel kernel for Hopper: wrapper, tables and launch count.
+"""The fused log-mel kernels for Hopper: wrappers, tables and launch counts.
 
-Replaces ``music2midi_tpu/ops/mel_pallas.py::log_mel_spectrogram_pallas_fft``
-(the TPU's serving mel).  The kernel is CUDA C++ in ``csrc/mel_fft.cu``,
-built by ``ops/_build.py`` at first use; its plain PyTorch version is
-``ops/mel.py::log_mel_spectrogram``, and ``chip_smoke.py`` holds the two
-against each other on the card.
+``log_mel_spectrogram_cuda`` replaces
+``music2midi_tpu/ops/mel_pallas.py::log_mel_spectrogram_pallas_fft`` (the
+TPU's serving mel) with the FFT kernel of ``csrc/mel_fft.cu``;
+``log_mel_spectrogram_dft_cuda`` replaces
+``music2midi_tpu/ops/mel_pallas.py::log_mel_spectrogram_pallas`` (the TPU's
+direct-DFT mel, on no serving path) with the kernel of ``csrc/mel_dft.cu``.
+Both are built by ``ops/_build.py`` at first use; their plain PyTorch
+version is ``ops/mel.py::log_mel_spectrogram``, and ``chip_smoke.py``
+holds each kernel against it on the card.
 
-Bound on the H100 at the serving shape (64 x 48000 wave -> 64 x 188 x 384):
+Bound of the FFT kernel on the H100 at the serving shape (64 x 48000 wave
+-> 64 x 188 x 384):
 bytes are 64*48000*4 read + 64*188*384*4 written = 30.8 MB, ~9 us at
 3.35 TB/s; operations are the real FFT's 2.5 N log2 N = 56 k fp32 flops
 per frame plus the window, the power and the mel triangles, 65.5 k a
@@ -14,7 +19,9 @@ frame and 0.79 GFLOP in all, ~12 us at the 67 TFLOP/s fp32 rate
 (``chip_smoke.py::mel_bound``).  So the kernel is bound by operations,
 though only just, and its design keeps every
 intermediate (frames, spectrum, power) in shared memory so that the bytes
-stay at the minimum.  The measured time is in PERF.md.
+stay at the minimum.  The direct-DFT kernel does the same function with
+some 130x the operations (``csrc/mel_dft.cu``).  Measured times are in
+PERF.md.
 """
 
 from __future__ import annotations
@@ -25,7 +32,14 @@ import numpy as np
 import torch
 
 from . import _build
-from .mel import LogMelConfig, filterbank_for, hann_window, num_frames
+from .mel import (
+    LogMelConfig,
+    apply_noise_floor,
+    filterbank_for,
+    hann_window,
+    log_mel_spectrogram,
+    num_frames,
+)
 
 _MAX_N_FFT = 4096  # shared memory: 20 * n_fft / 2 bytes, under 48 KB
 
@@ -118,3 +132,67 @@ def log_mel_spectrogram_cuda(
 
 
 log_mel_spectrogram_cuda.launches = 0
+
+
+_MAX_N_FFT_DFT = 2048  # shared memory: 20 n_fft + 32 (n_fft / 2 + 1) bytes
+
+
+def check_shape_dft(n_samples: int, cfg: LogMelConfig) -> None:
+    """The TPU kernel's guard (hop | n_fft) plus this kernel's own: a
+    power-of-two n_fft up to 2048, and a wave longer than the reflect
+    pad."""
+    n_fft, hop = cfg.n_fft, cfg.hop_length
+    if n_fft % hop != 0:
+        raise ValueError("direct-DFT mel kernel requires hop | n_fft")
+    if n_fft & (n_fft - 1) or n_fft > _MAX_N_FFT_DFT:
+        raise ValueError(f"direct-DFT mel kernel requires a power-of-two "
+                         f"n_fft <= {_MAX_N_FFT_DFT}")
+    if n_samples <= n_fft // 2:
+        raise ValueError(
+            f"reflect pad of {n_fft // 2} needs more than {n_samples} samples"
+        )
+
+
+@functools.lru_cache(maxsize=8)
+def _trig_table(n_fft: int, device: torch.device) -> torch.Tensor:
+    """(n_fft, 2) float32 (cos, sin) of 2 pi m / n_fft, from float64."""
+    ang = 2.0 * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft
+    tab = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+    return torch.from_numpy(tab).to(device)
+
+
+def log_mel_spectrogram_dft_cuda(
+    wave: torch.Tensor, cfg: LogMelConfig = LogMelConfig()
+) -> torch.Tensor:
+    """(B, S) float32 wave -> (B, F, n_mels) float32 log-mel as a direct
+    DFT: one launch of the kernel on the current stream for a CUDA tensor,
+    the plain version for a CPU tensor.  The shape guard runs first, on
+    either device."""
+    if wave.dim() != 2:
+        raise ValueError(f"mel kernel needs (B, S), got {tuple(wave.shape)}")
+    B, S = wave.shape
+    check_shape_dft(S, cfg)
+    if wave.device.type != "cuda":
+        return log_mel_spectrogram(wave, cfg)
+    wave = wave.to(torch.float32).contiguous()
+    F = num_frames(S, cfg)
+    out = torch.empty((B, F, cfg.n_mels), dtype=torch.float32,
+                      device=wave.device)
+    if B == 0:
+        return out
+    hann, _, lo, hi, off, wts = _tables(cfg, wave.device)
+    trig = _trig_table(cfg.n_fft, wave.device)
+    lib = _build.load()
+    stream = torch.cuda.current_stream(wave.device).cuda_stream
+    status = lib.m2m_log_mel_dft(
+        wave.data_ptr(), out.data_ptr(), hann.data_ptr(), trig.data_ptr(),
+        lo.data_ptr(), hi.data_ptr(), off.data_ptr(), wts.data_ptr(),
+        B, S, F, cfg.n_fft, cfg.hop_length, cfg.n_mels,
+        float(cfg.log_floor), stream,
+    )
+    _build.check(status, "m2m_log_mel_dft")
+    log_mel_spectrogram_dft_cuda.launches += 1
+    return apply_noise_floor(out, cfg)
+
+
+log_mel_spectrogram_dft_cuda.launches = 0

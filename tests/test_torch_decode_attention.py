@@ -1,0 +1,351 @@
+"""Port decode-attention functions and routes against the JAX package (CPU).
+
+On the CPU the wrappers of ``ops/decode_attention.py`` run their plain
+versions, which spell out the TPU kernels' arithmetic; the CUDA kernels
+are held against the same plain versions on the card
+(``tests/test_torch_gpu.py``, ``chip_smoke.py``).  Here the JAX Pallas
+kernels run in interpret mode (``da.INTERPRET``), as the JAX package's own
+tests run them; the transposed-cross kernel, alone, in a process of its
+own with ``--xla_allow_excess_precision=false``, so that its bf16 products
+round as its source reads.  Bars:
+
+  * the plain versions against the JAX kernels on the same seeded int8
+    inputs: rtol = atol = 1e-2 (bf16 outputs, one rounding apart);
+  * the JAX package's bars against JAX ``_attention_int8`` (0.05 for the
+    int8 kernel, 0.08 for the transposed-cross kernel) hold for the plain
+    versions too;
+  * ``decode_step`` through each new route, teacher-forced in bf16: logits
+    within 0.0625 of JAX ``decode_step(use_pallas=True)``, argmax equal
+    wherever JAX's top-2 gap exceeds 0.125 (as ``test_torch_decode.py``);
+  * ``generate_tokens`` with ``pallas_cross`` against JAX
+    ``generate_tokens(pallas_cross=True)``: the same bar on the logits
+    along JAX's tokens, the free-running agreement recorded.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import music2midi_tpu.ops.decode_attention as da
+from music2midi_tpu.infer.decode import DecodeConfig as JaxDecodeConfig
+from music2midi_tpu.infer.decode import generate_tokens as jax_generate
+from music2midi_tpu.models import t5 as jt5
+from music2midi_tpu_torch.infer.decode import DecodeConfig, generate_tokens
+from music2midi_tpu_torch.models import t5 as pt5
+from music2midi_tpu_torch.ops import decode_attention as pda
+from music2midi_tpu_torch.weights import params_from_jax
+
+SHAPE = dict(d_model=64, d_kv=16, num_heads=4, d_ff=96, num_layers=2,
+             num_decoder_layers=2)
+TOL = 0.0625  # one bf16 ulp at |logit| in [8, 16)
+ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two intra-op threads per parallel test worker (see
+    test_torch_pipeline.py)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture
+def _interpret():
+    da.INTERPRET = True
+    yield
+    da.INTERPRET = False
+
+
+def _normals(rng, *shape):
+    return rng.normal(size=shape).astype(np.float32)
+
+
+def _quantized(x):
+    """One f32 array -> (JAX int8 entry, port int8 entry), each side's own
+    ``_quantize_kv`` (the same rounding)."""
+    jq = jt5._quantize_kv(jnp.asarray(x))
+    pq = pt5._quantize_kv(torch.from_numpy(x))
+    np.testing.assert_array_equal(np.asarray(jq[0]), pq[0].numpy())
+    return jq, pq
+
+
+def _to_np(out):
+    return np.asarray(out, dtype=np.float32)
+
+
+B, H, L, D = 8, 8, 64, 64
+
+
+@pytest.fixture(scope="module")
+def qkv():
+    rng = np.random.default_rng(0)
+    q = _normals(rng, B, H, 1, D)
+    k, v = _normals(rng, B, H, L, D), _normals(rng, B, H, L, D)
+    k_new, v_new = _normals(rng, B, H, 1, D), _normals(rng, B, H, 1, D)
+    bias = _normals(rng, 1, H, 1, L)
+    return q, k, v, k_new, v_new, bias
+
+
+def _bf16_q(q):
+    return (jnp.asarray(q).astype(jnp.bfloat16),
+            torch.from_numpy(q).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("step", [0, 5, L - 1])
+def test_int8_causal_plain_matches_jax_kernel(_interpret, qkv, step):
+    """Pre-write cache plus the fresh-row patch, as the TPU kernel gets it;
+    the JAX package's bar against ``_attention_int8`` over the post-write
+    cache holds as well."""
+    q, k, v, k_new, v_new, bias = qkv
+    jq, pq = _bf16_q(q)
+    (jk, pk), (jv, pv) = _quantized(k), _quantized(v)
+    (jkn, pkn), (jvn, pvn) = _quantized(k_new), _quantized(v_new)
+    want = _to_np(da.decode_attention_int8(
+        jq, jk, jv, jnp.asarray(bias), jnp.int32(step), jkn, jvn,
+        causal=True))
+    got = pda.decode_attention_int8(
+        pq, pk, pv, torch.from_numpy(bias), step, pkn, pvn, causal=True)
+    assert got.shape == (B, H, 1, D) and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=1e-2,
+                               atol=1e-2)
+    k_w, v_w = k.copy(), v.copy()
+    k_w[:, :, step] = k_new[:, :, 0]
+    v_w[:, :, step] = v_new[:, :, 0]
+    vis = (jnp.arange(L) <= step)[None, None, None, :]
+    ref = _to_np(jt5._attention_int8(
+        jq, jt5._quantize_kv(jnp.asarray(k_w)),
+        jt5._quantize_kv(jnp.asarray(v_w)), jnp.asarray(bias), vis,
+        jnp.bfloat16))
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=0.05)
+
+
+@pytest.mark.parametrize("enc_len", [50, L])
+def test_int8_cross_plain_matches_jax_kernel(_interpret, qkv, enc_len):
+    q, k, v = qkv[:3]
+    jq, pq = _bf16_q(q)
+    (jk, pk), (jv, pv) = _quantized(k), _quantized(v)
+    want = _to_np(da.decode_attention_int8(
+        jq, jk, jv, None, None, None, None, causal=False, enc_len=enc_len))
+    got = pda.decode_attention_int8(pq, pk, pv, None, None, None, None,
+                                    causal=False, enc_len=enc_len)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=1e-2,
+                               atol=1e-2)
+    mask = (jnp.arange(L) < enc_len)[None, None, None, :]
+    ref = _to_np(jt5._attention_int8(jq, jk, jv, None, mask, jnp.bfloat16))
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=0.05)
+
+
+CROSS_T_LEN, CROSS_T_ENC_LENS = 128, (100, 128)
+
+_CROSS_T_JAX = """
+import sys
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import music2midi_tpu.ops.decode_attention as da
+from music2midi_tpu.models import t5 as jt5
+da.INTERPRET = True
+x = np.load(sys.argv[1])
+q = jnp.asarray(x["q"]).astype(jnp.bfloat16)
+kt = da.transpose_cross_entry(jt5._quantize_kv(jnp.asarray(x["k"])))
+vt = da.transpose_cross_entry(jt5._quantize_kv(jnp.asarray(x["v"])))
+np.savez(sys.argv[2], **{
+    str(n): np.asarray(da.decode_attention_cross_t(q, kt, vt, enc_len=int(n)),
+                       dtype=np.float32)
+    for n in x["enc_lens"]})
+"""
+
+
+def _cross_t_inputs():
+    rng = np.random.default_rng(3)
+    q = _normals(rng, B, H, 1, D)
+    k = _normals(rng, B, H, CROSS_T_LEN, D)
+    v = _normals(rng, B, H, CROSS_T_LEN, D)
+    return q, k, v
+
+
+@pytest.fixture(scope="module")
+def cross_t_jax(tmp_path_factory):
+    """The JAX transposed-cross kernel in interpret mode, in a process of
+    its own with ``--xla_allow_excess_precision=false``: without it XLA on
+    the CPU keeps the kernel's bf16 products in f32, which is not what the
+    kernel's source computes.  -> {enc_len: output}."""
+    d = tmp_path_factory.mktemp("cross_t")
+    q, k, v = _cross_t_inputs()
+    np.savez(d / "in.npz", q=q, k=k, v=v, enc_lens=np.array(CROSS_T_ENC_LENS))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS=(os.environ.get("XLA_FLAGS", "")
+                          + " --xla_allow_excess_precision=false").strip(),
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT), os.environ.get("PYTHONPATH", "")]))
+    subprocess.run([sys.executable, "-c", _CROSS_T_JAX, str(d / "in.npz"),
+                    str(d / "out.npz")], check=True, env=env, cwd=ROOT,
+                   timeout=300)
+    out = np.load(d / "out.npz")
+    return {int(n): out[n] for n in out.files}
+
+
+@pytest.mark.parametrize("enc_len", CROSS_T_ENC_LENS)
+def test_cross_t_plain_matches_jax_kernel(cross_t_jax, enc_len):
+    """Against the JAX kernel as its source reads (products rounded to
+    bf16); the JAX package's bar against ``_attention_int8`` holds too."""
+    Lx = CROSS_T_LEN
+    q, k, v = _cross_t_inputs()
+    jq, pq = _bf16_q(q)
+    (jk, pk), (jv, pv) = _quantized(k), _quantized(v)
+    want = cross_t_jax[enc_len]
+    pkt, pvt = pda.transpose_cross_entry(pk), pda.transpose_cross_entry(pv)
+    assert pkt[0].shape == (B, H, D, Lx) and pkt[0].is_contiguous()
+    got = pda.decode_attention_cross_t(pq, pkt, pvt, enc_len=enc_len)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=1e-2,
+                               atol=1e-2)
+    mask = (jnp.arange(Lx) < enc_len)[None, None, None, :]
+    ref = _to_np(jt5._attention_int8(jq, jk, jv, None, mask, jnp.bfloat16))
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=0.08)
+
+
+def test_keys_past_the_visible_ones_change_nothing():
+    """Keys past ``step`` (causal) or ``enc_len`` (cross), and their scales
+    and bias, do not change the output: the kernel never reads them, and
+    a caller may pass a whole max_length buffer."""
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(_normals(rng, 2, 2, 1, 16)).to(torch.bfloat16)
+    k8, ks = pt5._quantize_kv(torch.from_numpy(_normals(rng, 2, 2, 12, 16)))
+    v8, vs = pt5._quantize_kv(torch.from_numpy(_normals(rng, 2, 2, 12, 16)))
+    kn = pt5._quantize_kv(torch.from_numpy(_normals(rng, 2, 2, 1, 16)))
+    vn = pt5._quantize_kv(torch.from_numpy(_normals(rng, 2, 2, 1, 16)))
+    bias = torch.from_numpy(_normals(rng, 2, 12))
+
+    def both():
+        return (pda.decode_attention_int8(q, (k8, ks), (v8, vs), bias, 4,
+                                          kn, vn, causal=True),
+                pda.decode_attention_int8(q, (k8, ks), (v8, vs), None, None,
+                                          None, None, causal=False,
+                                          enc_len=5))
+
+    before = both()
+    for t in (k8, v8):
+        t[:, :, 5:] = 99
+    for t in (ks, vs):
+        t[..., 5:] = 7.0
+    bias[:, 5:] = 50.0
+    for a, b in zip(before, both()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# --------------------------------------------------------------------- #
+# decode_step routes and generate_tokens                                 #
+# --------------------------------------------------------------------- #
+
+
+@pytest.fixture(scope="module")
+def model():
+    tree = jt5.init_params(11, jt5.T5Config(**SHAPE))
+    pcfg = pt5.T5Config(**SHAPE, dtype=torch.bfloat16)
+    net = pt5.T5Model.from_state_dict(params_from_jax(tree), pcfg)
+    rng = np.random.default_rng(3)
+    enc = rng.normal(size=(8, 25, 64)).astype(np.float32)
+    return tree, net, pcfg, enc
+
+
+def _check_logits(lp, lj):
+    np.testing.assert_allclose(lp, lj, atol=TOL)
+    top2 = np.sort(lj, axis=-1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 2 * TOL
+    np.testing.assert_array_equal(lp.argmax(-1)[clear], lj.argmax(-1)[clear])
+
+
+def _teacher_forced(model, route, tokens, max_len):
+    """Step both engines' decode_step along `tokens` (B, T) in bf16 + int8
+    KV through `route`, holding every step's logits to the bar."""
+    tree, net, pcfg, enc = model
+    B = tokens.shape[0]
+    jcfg = jt5.T5Config(**SHAPE, dtype=jnp.bfloat16)
+    jenc = jnp.asarray(enc[:B]).astype(jnp.bfloat16)
+    jcross = jt5.precompute_cross_kv(tree, jenc, jcfg, quantize=True)
+    pcross = pt5.precompute_cross_kv(
+        net, torch.from_numpy(enc[:B]).to(torch.bfloat16), pcfg,
+        quantize=True)
+    if route == "cross_t":
+        jcross = jcross._replace(layers=[
+            (da.transpose_cross_entry(k), da.transpose_cross_entry(v))
+            for k, v in jcross.layers])
+        pcross = pt5.transpose_cross_kv(pcross)
+    jcache = jt5.init_kv_cache(B, max_len, jcfg, quantize=True)
+    pcache = pt5.init_kv_cache(B, max_len, pcfg, quantize=True)
+    jdp = jt5.prepare_decode_params(tree, jcfg)
+    dp = pt5.prepare_decode_params(net, pcfg)
+    rows = pt5.decoder_bias_rows(dp["rel_bias"], max_len, pcfg)
+    before = (pda.decode_attention_int8.launches,
+              pda.decode_attention_cross_t.launches)
+    for step in range(tokens.shape[1]):
+        tok = tokens[:, step]
+        lj, jcache = jt5.decode_step(jdp, jnp.asarray(tok), jnp.int32(step),
+                                     jcache, jcross, jcfg, max_len,
+                                     use_pallas=True)
+        lp = pt5.decode_step(dp, torch.from_numpy(tok).long(), step, pcache,
+                             pcross, pcfg, rows, use_pallas=True)
+        _check_logits(lp.float().numpy(), np.asarray(lj).astype(np.float32))
+    # the CPU route takes the plain versions and launches no kernel
+    assert (pda.decode_attention_int8.launches,
+            pda.decode_attention_cross_t.launches) == before
+
+
+@pytest.mark.parametrize("route", ["int8", "cross_t"])
+def test_decode_step_routes_match_jax_pallas(_interpret, model, route):
+    """int8: self and cross blocks through decode_attention_int8;
+    cross_t: the cross blocks through decode_attention_cross_t over the
+    transposed cross-KV (B = 8, the JAX kernel's batch block)."""
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(3, 400, size=(8, 12)).astype(np.int32)
+    tokens[:, 0] = 1
+    _teacher_forced(model, route, tokens, max_len=16)
+
+
+def test_generate_tokens_pallas_cross_matches_jax(_interpret, model):
+    tree, net, pcfg, enc = model
+    max_len = 20
+    jcfg = jt5.T5Config(**SHAPE, dtype=jnp.bfloat16)
+    jt, _ = jax_generate(
+        tree, jnp.asarray(enc).astype(jnp.bfloat16), jcfg,
+        JaxDecodeConfig(max_length=max_len, suppress_tokens=(2,),
+                        quantize_cross_kv=True, quantize_self_kv=True,
+                        pallas_cross=True))
+    jt = np.array(jt)
+    _teacher_forced(model, "cross_t", jt[:, :-1], max_len)
+    pt, pl = generate_tokens(net, torch.from_numpy(enc).to(torch.bfloat16),
+                             pcfg, DecodeConfig(
+                                 max_length=max_len, suppress_tokens=(2,),
+                                 quantize_kv=True, pallas_cross=True))
+    assert pt.shape == jt.shape and bool((pl == max_len).all())
+    agree = float((pt.numpy()[:, 1:] == jt[:, 1:]).mean())
+    print(f"pallas_cross bf16 free-running token agreement vs JAX: "
+          f"{agree:.4f}")
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    """Shape errors raise before any CUDA call; the checks of a CUDA
+    tensor's layout are in ``_check_int8``."""
+    q = torch.zeros(2, 2, 1, 16, dtype=torch.bfloat16)
+    k = torch.zeros(2, 2, 8, 16, dtype=torch.int8)
+    with pytest.raises(ValueError, match="16-byte"):
+        pda._check_int8("k", k[:, :, :, 1:], 4)
+    with pytest.raises(ValueError, match="int8"):
+        pda._check_int8("k", k.float(), 4)
+    with pytest.raises(ValueError, match="transposed"):
+        pt5.transpose_cross_kv(pt5.CrossKV(layers=[(k, k)], enc_len=8))
+    assert pda.decode_attention_int8(
+        q, (k, torch.ones(2, 2, 1, 8)), (k, torch.ones(2, 2, 1, 8)), None,
+        None, None, None, causal=False).shape == (2, 2, 1, 16)

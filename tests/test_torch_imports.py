@@ -9,8 +9,9 @@ no ml_dtypes and no yaml; and the JAX package itself needs yaml at import
     ``music2midi_tpu``;
   * a subprocess in which importing any of them raises imports every port
     module and ``chip_smoke``, then runs the calibration fixture through
-    ``Music2MIDI.from_npz(model_of_record, device="cpu")`` in fp32, and
-    the pinned ``check_midi`` gate must pass.
+    ``Music2MIDI.from_npz(model_of_record, device="cpu")`` in fp32 through
+    ``generate`` and through ``generate_batch``: the pinned ``check_midi``
+    gate must pass, and the two must give the same notes.
 """
 
 import ast
@@ -78,9 +79,16 @@ wav, sr = render_fixture()
 with tempfile.TemporaryDirectory() as td:
     write_wav(td + "/a4.wav", wav, sr)
     engine = Music2MIDI.from_npz(sys.argv[2], device="cpu")
-    ok, detail = check_midi(engine.generate(audio_path=td + "/a4.wav"))
+    midi = engine.generate(audio_path=td + "/a4.wav")
+    ok, detail = check_midi(midi)
+    (batch,) = engine.generate_batch(audio_paths=[td + "/a4.wav"])
+
+def notes(m):
+    return [(n.start, n.end, n.pitch) for n in m.instruments[0].notes]
+
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print(json.dumps({"modules": mods, "ok": ok, "detail": detail,
+                  "batch_same": notes(batch) == notes(midi),
                   "leaked": leaked}))
 """
 
@@ -95,5 +103,7 @@ def test_port_runs_with_the_card_machines_packages_only():
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "music2midi_tpu_torch.ops.mel_cuda" in res["modules"]
     assert "music2midi_tpu_torch.infer.pipeline" in res["modules"]
+    assert "music2midi_tpu_torch.ops.decode_attention" in res["modules"]
     assert res["leaked"] == []
     assert res["ok"], res["detail"]
+    assert res["batch_same"]
