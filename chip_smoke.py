@@ -21,12 +21,15 @@ and exits non-zero, and nothing is caught and passed over:
        the log domain, silence on log(1e-6) within 1e-4, the tone's
        argmax mel bin equal; yardstick: a torch.stft chain; bound: the
        function's (a real FFT's operations) for both kernels, and for the
-       direct-DFT one also its algorithm's (``algorithm_bound_ms``);
+       direct-DFT one also its algorithm's (``algorithm_bound_ms``: 3xTF32
+       over the folded K at the dense TF32 rate);
      - the int8 decode-attention kernel at B = 64, H = 8, D = 64 over a
        1024-long int8 cache, causal at steps 0, 63, 127 and 1022, and
        cross at enc_len 190 = L and 150 on K/V laid out as
-       ``precompute_cross_kv`` lays them out; the transposed-cross kernel
-       at (64, 8, 64, 190), enc_len 190 and 150; bar 2e-2 on the bf16
+       ``precompute_cross_kv`` lays them out, with ``round_pv`` off (the
+       TPU kernel's arithmetic) and on (the serving route's); the
+       transposed-cross kernel at (64, 8, 64, 190) on the padded rows of
+       ``transpose_cross_entry``, enc_len 190 and 150; bar 2e-2 on the bf16
        outputs; yardstick: ``F.scaled_dot_product_attention`` over K/V
        dequantized to bf16 before the timed region; timed over six
        inputs in turn, as the decode loop's six layers come;
@@ -42,7 +45,8 @@ and exits non-zero, and nothing is caught and passed over:
   7. song timing: a synthetic 3-minute song through serving ``generate``,
      one warm-up and three timed runs, a per-stage breakdown, and the
      decode stage with the attention kernels off and on (in turns) on
-     the same encoder output;
+     the same encoder output, and the greedy tokens of the two routes
+     (the kernel with ``round_pv``, and plain ``_attention_int8``);
   8. batch serving: ``warmup([128])``, then ``generate_batch`` over four
      synthetic 3-minute songs, one warm-up and two timed runs;
   9. the ``kernels`` JSON line.
@@ -67,6 +71,7 @@ ROOT = Path(__file__).resolve().parent
 RECORD = ROOT / "checkpoints" / "model_of_record.npz"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM, dense TF32 on the tensor cores
 ATTN_BAR = 2e-2  # decode-attention kernels vs plain, bf16 outputs
 B_SERVE, HEADS, D_KV = 64, 8, 64  # the song's bucket; the model's heads
 SELF_LEN, ENC_LEN = 1024, 190  # decode_max_length; 188 frames + 2 cond
@@ -178,27 +183,34 @@ def _bound(nbytes: float, ops: float) -> tuple:
             nbytes, ops)
 
 
-def mel_bound(B: int, S: int, cfg, direct_dft: bool = False) -> tuple:
+def mel_bound(B: int, S: int, cfg) -> tuple:
     """Least time on the card for the log-mel of (B, S): bytes (wave read
     once, mels written once) over HBM rate vs fp32 operations over the
     fp32 rate.  The function needs, per frame, an n_fft-point real FFT,
     2.5 N log2 N flops (half a complex FFT of the same length), plus the
     window, the power of N/2 + 1 bins and the multiply-adds of the nonzero
-    mel weights: this is the bound of both mel kernels.  ``direct_dft``
-    counts instead what the direct-DFT algorithm does, a multiply-add per
-    sample for the cos and the sin half of each of the N/2 + 1 bins,
-    4 N (N/2 + 1) flops: the least time of that algorithm, not of the
-    function."""
+    mel weights: this is the bound of both mel kernels."""
     from music2midi_tpu_torch.ops.mel import num_frames
     from music2midi_tpu_torch.ops.mel_cuda import mel_nnz
 
     F = num_frames(S, cfg)
     n = cfg.n_fft
     nbytes = 4 * B * S + 4 * B * F * cfg.n_mels
-    transform = (4 * n * (n // 2 + 1) if direct_dft
-                 else 2.5 * n * math.log2(n))
-    per_frame = transform + n + 3 * (n // 2 + 1) + 2 * mel_nnz(cfg)
+    per_frame = (2.5 * n * math.log2(n) + n + 3 * (n // 2 + 1)
+                 + 2 * mel_nnz(cfg))
     return _bound(nbytes, B * F * per_frame)
+
+
+def dft_algorithm_bound(B: int, S: int, cfg) -> tuple:
+    """Least time of the direct-DFT kernel's own algorithm, not of the
+    function: three TF32 tensor-core passes (3xTF32) of a (B F) x (N/2) x N
+    product, the frames folded to K = N/2 against the cos and sin columns
+    of N/2 bins each, at the dense TF32 rate -> (ms, flops)."""
+    from music2midi_tpu_torch.ops.mel import num_frames
+
+    n = cfg.n_fft
+    ops = 3 * 2 * B * num_frames(S, cfg) * (n // 2) * n
+    return ops / TF32_FLOPS_PER_S * 1e3, ops
 
 
 def attention_bound(B: int, H: int, D: int, n: int, causal: bool) -> tuple:
@@ -321,26 +333,32 @@ def attention_phase(smi: str) -> tuple:
                      da.transpose_cross_entry(v)) for q, k, v in cross_sets]
     errs = {"int8": 0.0, "cross_t": 0.0}
     q, k, v, kn, vn, bias = self_sets[0]
-    for step in (0, 63, 127, SELF_LEN - 2):
+    for step, rp in itertools.product((0, 63, 127, SELF_LEN - 2),
+                                      (False, True)):
         errs["int8"] = max(errs["int8"], check(
-            da.decode_attention_int8(q, k, v, bias, step, kn, vn, True),
-            da.decode_attention_int8_plain(q, k, v, bias, step, kn, vn, True),
-            f"int8 causal step {step}"))
+            da.decode_attention_int8(q, k, v, bias, step, kn, vn, True,
+                                     round_pv=rp),
+            da.decode_attention_int8_plain(q, k, v, bias, step, kn, vn, True,
+                                           round_pv=rp),
+            f"int8 causal step {step} round_pv {rp}"))
     q, k, v = cross_sets[0]
     qt, kt, vt = cross_t_sets[0]
+    require(kt[0].stride(2) == 192, "transposed cross rows not padded")
     for enc_len in (ENC_LEN, 150):
-        errs["int8"] = max(errs["int8"], check(
-            da.decode_attention_int8(q, k, v, None, None, None, None, False,
-                                     enc_len),
-            da.decode_attention_int8_plain(q, k, v, None, None, None, None,
-                                           False, enc_len),
-            f"int8 cross enc_len {enc_len}"))
+        for rp in (False, True):
+            errs["int8"] = max(errs["int8"], check(
+                da.decode_attention_int8(q, k, v, None, None, None, None,
+                                         False, enc_len, round_pv=rp),
+                da.decode_attention_int8_plain(q, k, v, None, None, None,
+                                               None, False, enc_len,
+                                               round_pv=rp),
+                f"int8 cross enc_len {enc_len} round_pv {rp}"))
         errs["cross_t"] = max(errs["cross_t"], check(
             da.decode_attention_cross_t(qt, kt, vt, enc_len),
             da.decode_attention_cross_t_plain(qt, kt, vt, enc_len),
             f"cross_t enc_len {enc_len}"))
 
-    def self_calls(step):
+    def self_calls(step, rp):
         """The views the decode loop passes at `step`: the visible prefix
         of the cache and the bias row's window, no copies."""
         n = step + 1
@@ -348,7 +366,7 @@ def attention_phase(smi: str) -> tuple:
         for q, k, v, kn, vn, bias in self_sets:
             args = (q, (k[0][:, :, :n], k[1][..., :n]),
                     (v[0][:, :, :n], v[1][..., :n]), bias[0, :, 0, :n],
-                    step, kn, vn, True)
+                    step, kn, vn, True, 0, rp)
             out["kernel"].append(lambda a=args: da.decode_attention_int8(*a))
             out["plain"].append(
                 lambda a=args: da.decode_attention_int8_plain(*a))
@@ -360,7 +378,7 @@ def attention_phase(smi: str) -> tuple:
                                                scale=1.0))
         return out
 
-    def cross_calls(transposed):
+    def cross_calls(transposed, rp=False):
         out = {"kernel": [], "plain": [], "library": []}
         for (q, k, v), (_, kt, vt) in zip(cross_sets, cross_t_sets):
             if transposed:
@@ -370,7 +388,7 @@ def attention_phase(smi: str) -> tuple:
                 out["plain"].append(
                     lambda a=args: da.decode_attention_cross_t_plain(*a))
             else:
-                args = (q, k, v, None, None, None, None, False, ENC_LEN)
+                args = (q, k, v, None, None, None, None, False, ENC_LEN, rp)
                 out["kernel"].append(
                     lambda a=args: da.decode_attention_int8(*a))
                 out["plain"].append(
@@ -381,10 +399,18 @@ def attention_phase(smi: str) -> tuple:
                 F.scaled_dot_product_attention(q, kd, vd, scale=1.0))
         return out
 
+    # kernel 3 with round_pv (the serving route's arithmetic) first: its
+    # causal step 1022 row heads the kernels line
     timings = {"int8": [], "cross_t": []}
     for name, what, calls, n, causal in (
-            ("int8", "causal step 127", self_calls(127), 128, True),
-            ("int8", "causal step 1022", self_calls(SELF_LEN - 2),
+            ("int8", "causal step 127 round_pv", self_calls(127, True), 128,
+             True),
+            ("int8", "causal step 1022 round_pv",
+             self_calls(SELF_LEN - 2, True), SELF_LEN - 1, True),
+            ("int8", "cross L 190 round_pv", cross_calls(False, True),
+             ENC_LEN, False),
+            ("int8", "causal step 127", self_calls(127, False), 128, True),
+            ("int8", "causal step 1022", self_calls(SELF_LEN - 2, False),
              SELF_LEN - 1, True),
             ("int8", "cross L 190", cross_calls(False), ENC_LEN, False),
             ("cross_t", "cross L 190", cross_calls(True), ENC_LEN, False)):
@@ -552,10 +578,11 @@ def main() -> int:
                 "shape": f"wave ({B}, {S}) f32 -> ({B}, 188, {cfg.n_mels})"}
             algo = ""
             if dft:
-                algo_ms, algo_by, _, algo_ops = mel_bound(B, S, cfg, True)
+                algo_ms, algo_ops = dft_algorithm_bound(B, S, cfg)
                 mel_entries[name]["algorithm_bound_ms"] = algo_ms
-                algo = (f" algorithm_bound_ms(direct DFT)={algo_ms:.4f} "
-                        f"({algo_by}; {algo_ops:.4g} flop)")
+                algo = (f" algorithm_bound_ms(3xTF32 over the folded K at "
+                        f"{TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s dense TF32)="
+                        f"{algo_ms:.4f} ({algo_ops:.4g} flop)")
             infos.append(
                 f"{name}: max_abs_err(noise)={max_err:.3e} "
                 f"silence_err={silence:.2e} tone_bin={tone_k} "
@@ -706,7 +733,7 @@ def main() -> int:
                    f"decode_kernels_on_s={[d[0] for d in dec[True]]} "
                    f"steps_off={int(l_off.max()) - 1} "
                    f"steps_on={int(l_on.max()) - 1} "
-                   f"greedy_token_agreement_on_vs_off="
+                   f"greedy_token_agreement_kernel_route_vs_attention_int8="
                    f"{agree_n / agree_d:.6f} ({agree_n}/{agree_d}) [{smi}]")
 
     with Phase("batch_serving") as ph:

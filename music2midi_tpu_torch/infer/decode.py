@@ -41,7 +41,7 @@ class DecodeConfig(NamedTuple):
     suppress_tokens: tuple = ()  # token ids masked to -inf before argmax
     quantize_kv: bool = False  # int8 self- and cross-KV (serving mode)
     # with quantize_kv: every int8 attention block through
-    # decode_attention_int8 (the CUDA kernel on a CUDA tensor)
+    # decode_attention_int8 with round_pv (the CUDA kernel on a CUDA tensor)
     pallas_attention: bool = False
     # with quantize_kv: the cross-KV stored transposed (B, H, D, L) once
     # per generation, and the cross blocks through decode_attention_cross_t

@@ -151,7 +151,9 @@ class Music2MIDI:
         XLA's fusion (``music2midi_tpu/ops/decode_attention.py``), while on
         the H100 the decode loop is bound by the host's launches (PERF.md,
         section 5) and one launch of the kernel replaces about ten of the
-        plain chain.  ``pallas_cross`` moves the cross blocks to the
+        plain chain.  The kernel runs with ``round_pv``, so the engine
+        serves the JAX engine's arithmetic (``_attention_int8``: ``p * vs``
+        rounded to bf16).  ``pallas_cross`` moves the cross blocks to the
         transposed-cross kernel."""
         int8 = self.t5_config.dtype != torch.float32
         return DecodeConfig(

@@ -587,8 +587,11 @@ def decode_step(
     cache goes through ``decode_attention_int8(causal=True)`` and an int8
     cross-KV through ``decode_attention_int8(causal=False)``; a transposed
     cross-KV always goes through ``decode_attention_cross_t``; otherwise
-    ``_attention_int8`` (int8) or ``attention``.  The kernels are handed
-    views of the cache buffers, never copies."""
+    ``_attention_int8`` (int8) or ``attention``.  The int8 kernel runs
+    with ``round_pv``, so it computes ``_attention_int8``'s arithmetic
+    (``p * vs`` rounded to bf16), the JAX engine's serving route, in the
+    self blocks of the ``pallas_cross`` route too, as there.  The kernels
+    are handed views of the cache buffers, never copies."""
     dt = cfg.dtype
     H, D = cfg.num_heads, cfg.d_kv
     x = dparams["embedding"][token][:, None]  # (B, 1, d_model)
@@ -606,7 +609,8 @@ def decode_step(
         k_seen, v_seen = _prefix(k_entry, n), _prefix(v_entry, n)
         if k_newq is not None and use_pallas:
             h = decode_attention_int8(q, k_seen, v_seen, bias_2d, step,
-                                      k_newq, v_newq, causal=True)
+                                      k_newq, v_newq, causal=True,
+                                      round_pv=True)
         elif k_newq is not None:
             h = _attention_int8(q, k_seen, v_seen, bias_row, None, dt)
         else:
@@ -619,7 +623,8 @@ def decode_step(
             a = decode_attention_cross_t(q, ck, cv, enc_len=cross_kv.enc_len)
         elif isinstance(ck, tuple) and use_pallas:
             a = decode_attention_int8(q, ck, cv, None, None, None, None,
-                                      causal=False, enc_len=cross_kv.enc_len)
+                                      causal=False, enc_len=cross_kv.enc_len,
+                                      round_pv=True)
         elif isinstance(ck, tuple):
             a = _attention_int8(q, ck, cv, None, None, dt)
         else:

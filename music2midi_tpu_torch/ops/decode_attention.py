@@ -12,9 +12,14 @@ with the TPU kernel's arguments and arithmetic:
     and takes position ``step`` from this step's fresh quantized row;
     ``causal=False`` (cross attention) keeps keys < ``enc_len``.  Products
     and ``p * vs`` are f32; only the output is rounded to bf16.
+    ``round_pv=True`` rounds each ``p * vs`` to bf16 before the PV
+    products instead: the arithmetic of the JAX package's serving route,
+    ``models/t5.py::_attention_int8``, which the port's engine serves
+    with (its JAX twin never enables the TPU kernel).
   * ``decode_attention_cross_t`` (TPU kernel ``decode_attention_cross_t``):
     cross attention over a TRANSPOSED (B, H, D, L) int8 cache
-    (``transpose_cross_entry``), as the TPU kernel's source reads: each
+    (``transpose_cross_entry``: a view of a copy whose rows are padded to
+    16 bytes), as the TPU kernel's source reads: each
     int8 x bf16 product of the score and PV passes rounded to bf16 (the
     f32 product is exact, so this is one rounding), the sums in f32, and
     ``p * vs`` rounded to bf16 before the PV products.  XLA on the CPU
@@ -54,6 +59,9 @@ from . import _build
 
 MAX_KEYS = 4096  # visible keys per call: the score row lives in shared
 # memory (4 bytes a key, 16 KB at this maximum)
+MAX_CROSS_T_KEYS = 1024  # the transposed-cross kernel stages all of K
+# and V in shared memory, 2 x 64 x (keys + 16) bytes, beside 11 floats a
+# key: 178 KB at this maximum
 HEAD_DIM = 64  # the kernels are written for d_kv = 64
 
 Entry = Tuple[torch.Tensor, torch.Tensor]  # (int8 values, f32 scales)
@@ -86,22 +94,33 @@ def decode_attention_int8_plain(
     new_v: Optional[Entry],
     causal: bool,
     enc_len: int = 0,
+    round_pv: bool = False,
 ) -> torch.Tensor:
-    """The TPU kernel's arithmetic in PyTorch -> (B, H, 1, D) in q.dtype."""
+    """The kernel's arithmetic in PyTorch -> (B, H, 1, D) in q.dtype.
+
+    Key ``step`` (causal) is read from the fresh rows, through the same
+    products as every other key.  ``round_pv=False`` is the TPU kernel's
+    arithmetic (``p * vs`` in f32); ``round_pv=True`` rounds each
+    ``p * vs`` to bf16 before the PV products, the fresh row's too, as
+    the JAX package's serving route ``models/t5.py::_attention_int8``
+    does over the post-write cache."""
     k8, ks = k_entry
     v8, vs = v_entry
     B, H, L, D = k8.shape
     if not causal and enc_len <= 0:
         enc_len = L  # no pad mask (0 would mask every key)
     qf = q.to(torch.bfloat16).float()  # (B, H, 1, D)
-    scores = torch.matmul(qf, k8.float().transpose(-1, -2))[:, :, 0, :]
-    scores = scores * ks[:, :, 0, :]  # (B, H, L)
+    kf, vf = k8.float(), v8.float()
+    ks, vs = ks[:, :, 0, :], vs[:, :, 0, :]  # (B, H, L)
     l_pos = torch.arange(L, device=q.device)
     if causal:
-        kn8, kns = new_k
-        vn8, vns = new_v
-        s_new = (kn8.float() * qf).sum(-1) * kns[:, :, 0, :]  # (B, H, 1)
-        scores = torch.where(l_pos == step, s_new, scores)
+        fresh = l_pos == step
+        kf = torch.where(fresh[:, None], new_k[0].float(), kf)
+        vf = torch.where(fresh[:, None], new_v[0].float(), vf)
+        ks = torch.where(fresh, new_k[1][:, :, 0, :], ks)
+        vs = torch.where(fresh, new_v[1][:, :, 0, :], vs)
+    scores = torch.matmul(qf, kf.transpose(-1, -2))[:, :, 0, :] * ks
+    if causal:
         scores = scores + _bias_2d(bias).float()[None, :, :L]
         scores = torch.where(l_pos <= step, scores,
                              torch.tensor(_NEG, device=q.device))
@@ -111,24 +130,27 @@ def decode_attention_int8_plain(
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp(scores - m)
     p = e / e.sum(dim=-1, keepdim=True)  # (B, H, L) f32
-    pv = p * vs[:, :, 0, :]
-    if causal:
-        p_new = torch.where(l_pos == step, p, 0.0).sum(-1)  # (B, H)
-        pv = torch.where(l_pos == step, 0.0, pv)
-    out = torch.matmul(pv[:, :, None, :], v8.float())[:, :, 0, :]  # (B,H,D)
-    if causal:
-        out = out + (p_new * vns[:, :, 0, 0])[:, :, None] \
-            * vn8[:, :, 0, :].float()
-    return out.to(torch.bfloat16)[:, :, None, :].to(q.dtype)
+    pv = p * vs
+    if round_pv:
+        pv = pv.to(torch.bfloat16).float()
+    out = torch.matmul(pv[:, :, None, :], vf)  # (B, H, 1, D)
+    return out.to(torch.bfloat16).to(q.dtype)
 
 
 def transpose_cross_entry(entry: Entry) -> Entry:
-    """(int8 (B, H, L, D), scales (B, H, 1, L)) -> values as a contiguous
-    (B, H, D, L) copy for ``decode_attention_cross_t``; the scales stay in
-    their score-row layout.  Once per generation: cross K/V are written
-    once."""
+    """(int8 (B, H, L, D), scales (B, H, 1, L)) -> values transposed for
+    ``decode_attention_cross_t``: a (B, H, D, L) view, the JAX package's
+    shape, of a zeroed (B, H, D, Lp) copy with Lp = L rounded up to 16, so
+    that every row of L keys starts 16 bytes aligned and the kernel can
+    read whole 16-byte pieces (the pad keys are masked).  The scales stay
+    in their score-row layout.  Once per generation: cross K/V are
+    written once."""
     vals, scales = entry
-    return vals.transpose(2, 3).contiguous(), scales
+    B, H, L, D = vals.shape
+    padded = torch.zeros((B, H, D, _round16(L)), dtype=vals.dtype,
+                         device=vals.device)
+    padded[..., :L] = vals.transpose(2, 3)
+    return padded[..., :L], scales
 
 
 def decode_attention_cross_t_plain(
@@ -178,7 +200,7 @@ _Int8Args = _struct(
     "q_sb q_sh k_sb k_sh k_sl v_sb v_sh v_sl ks_sb ks_sh ks_sl "
     "vs_sb vs_sh vs_sl bias_sh bias_sl kn_sb kn_sh vn_sb vn_sh "
     "kns_sb kns_sh vns_sb vns_sh",
-    "H n_keys step causal",
+    "H n_keys step causal round_pv",
 )
 _CrossTArgs = _struct(
     "CrossTArgs",
@@ -200,6 +222,25 @@ def _check_int8(name: str, t: torch.Tensor, dims: int) -> None:
             s % 16 for s in t.stride()[:-1]):
         raise ValueError(f"{name}: needs unit last stride and 16-byte "
                          f"aligned rows, got strides {t.stride()}")
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _check_padded_rows(name: str, t: torch.Tensor, n_keys: int) -> None:
+    """A transposed (B, H, D, L) int8 operand whose rows the kernel reads
+    in whole 16-byte pieces: aligned rows (``_check_int8``), and storage
+    behind every row for ``n_keys`` rounded up to 16 bytes, as
+    ``transpose_cross_entry`` pads it."""
+    _check_int8(name, t, 4)
+    last = t.storage_offset() + sum(
+        (n - 1) * st for n, st in zip(t.shape[:-1], t.stride()[:-1]))
+    if t.stride(-2) < _round16(n_keys) or \
+            last + _round16(n_keys) > t.untyped_storage().nbytes():
+        raise ValueError(f"{name}: rows must be padded to {_round16(n_keys)} "
+                         f"bytes (transpose_cross_entry), got strides "
+                         f"{t.stride()}")
 
 
 def _check_f32(name: str, t: torch.Tensor, shape: tuple) -> None:
@@ -238,18 +279,22 @@ def decode_attention_int8(
     new_v: Optional[Entry],
     causal: bool,
     enc_len: int = 0,
+    round_pv: bool = False,
 ) -> torch.Tensor:
     """-> attention output (B, H, 1, D) in q.dtype.
 
     The kernel for CUDA tensors, ``decode_attention_int8_plain`` for CPU
-    tensors.  The kernel reads only the visible keys, through the
+    tensors.  ``round_pv`` rounds each ``p * vs`` to bf16 before the PV
+    products (the serving arithmetic of ``_attention_int8``); off, it is
+    the TPU kernel's arithmetic.  The kernel reads only the visible keys, through the
     operands' strides: keys 0..step (causal; key ``step`` from the fresh
     row) or 0..enc_len-1 (cross), so a caller may pass a whole
     ``max_length`` cache buffer.  ``bias`` is indexed by key position
     (``bias[h, j]`` for key j) and may be a strided view."""
     if q.device.type != "cuda":
         return decode_attention_int8_plain(q, k_entry, v_entry, bias, step,
-                                           new_k, new_v, causal, enc_len)
+                                           new_k, new_v, causal, enc_len,
+                                           round_pv)
     k8, ks = k_entry
     v8, vs = v_entry
     B, H, L, D = k8.shape
@@ -285,6 +330,7 @@ def decode_attention_int8(
         ks_sb=ks.stride(0), ks_sh=ks.stride(1), ks_sl=ks.stride(3),
         vs_sb=vs.stride(0), vs_sh=vs.stride(1), vs_sl=vs.stride(3),
         H=H, n_keys=n_keys, step=step if causal else -1, causal=int(causal),
+        round_pv=int(round_pv),
     )
     if causal:
         b2 = _bias_2d(bias)
@@ -333,9 +379,11 @@ def decode_attention_cross_t(
     enc_len: int = 0,
 ) -> torch.Tensor:
     """-> attention output (B, H, 1, D) in q.dtype, over a transposed int8
-    cross cache.  The kernel for CUDA tensors (byte loads along L, so an
-    unaligned L such as 190 needs no padding; keys >= enc_len are never
-    read), ``decode_attention_cross_t_plain`` for CPU tensors."""
+    cross cache.  The kernel for CUDA tensors, which stages the K and V
+    rows in 16-byte pieces and so needs them padded as
+    ``transpose_cross_entry`` pads them (it raises otherwise; keys >=
+    enc_len are masked, whatever the pad holds);
+    ``decode_attention_cross_t_plain`` for CPU tensors."""
     if q.device.type != "cuda":
         return decode_attention_cross_t_plain(q, kt_entry, vt_entry, enc_len)
     kt8, ks = kt_entry
@@ -347,15 +395,14 @@ def decode_attention_cross_t(
     n_keys = L if enc_len <= 0 else int(enc_len)
     if n_keys > L:
         raise ValueError(f"enc_len {n_keys} > cache length {L}")
-    if n_keys > MAX_KEYS:
-        raise ValueError(f"decode attention kernel takes at most {MAX_KEYS} "
-                         f"visible keys, got {n_keys}")
+    if n_keys > MAX_CROSS_T_KEYS:
+        raise ValueError(f"transposed-cross kernel takes at most "
+                         f"{MAX_CROSS_T_KEYS} keys, got {n_keys}")
     for name, t in (("kt", kt8), ("vt", vt8)):
-        if t.dtype != torch.int8 or tuple(t.shape) != (B, H, D, L) \
-                or t.stride(-1) != 1:
-            raise ValueError(f"{name}: needs int8 {(B, H, D, L)} with a unit "
-                             f"last stride, got {t.dtype} {tuple(t.shape)} "
-                             f"strides {t.stride()}")
+        if tuple(t.shape) != (B, H, D, L):
+            raise ValueError(f"{name}: needs {(B, H, D, L)}, got "
+                             f"{tuple(t.shape)}")
+        _check_padded_rows(name, t, n_keys)
     _check_f32("k scales", ks, (B, H, 1, L))
     _check_f32("v scales", vs, (B, H, 1, L))
     _on_card(q, kt8, vt8, ks, vs)

@@ -20,7 +20,8 @@ frame and 0.79 GFLOP in all, ~12 us at the 67 TFLOP/s fp32 rate
 though only just, and its design keeps every
 intermediate (frames, spectrum, power) in shared memory so that the bytes
 stay at the minimum.  The direct-DFT kernel does the same function with
-some 130x the operations (``csrc/mel_dft.cu``).  Measured times are in
+some 130x the operations, as a 3xTF32 tensor-core matrix product
+(``csrc/mel_dft.cu``).  Measured times are in
 PERF.md.
 """
 
@@ -134,31 +135,101 @@ def log_mel_spectrogram_cuda(
 log_mel_spectrogram_cuda.launches = 0
 
 
-_MAX_N_FFT_DFT = 2048  # shared memory: 20 n_fft + 32 (n_fft / 2 + 1) bytes
+_DFT_SMEM_LIMIT = 232448  # bytes of shared memory a block can use (H100)
+
+
+def dft_smem_bytes(cfg: LogMelConfig) -> int:
+    """Shared memory of one block of ``csrc/mel_dft.cu`` (its
+    ``dft_smem_words``): a ring of two 64 KB basis stages (one of which
+    holds the power tile at a chunk's end), the wave segment of 64 frames
+    with 4 pad words every 256, the window and two words a frame."""
+    def skew(n):
+        return n + 4 * (n >> 8)
+
+    seg = -(-skew(63 * cfg.hop_length + cfg.n_fft + 1) // 4) * 4
+    words = 2 * 16384 + seg + cfg.n_fft + 2 * 64
+    return 4 * words
 
 
 def check_shape_dft(n_samples: int, cfg: LogMelConfig) -> None:
-    """The TPU kernel's guard (hop | n_fft) plus this kernel's own: a
-    power-of-two n_fft up to 2048, and a wave longer than the reflect
-    pad."""
+    """The TPU kernel's guard (hop | n_fft) plus this kernel's own: 8 | hop
+    (16-byte frame reads), a power-of-two n_fft from 256 to 2048 (bins in
+    chunks of 128), a frame tile that fits in shared memory, and a wave
+    longer than the reflect pad."""
     n_fft, hop = cfg.n_fft, cfg.hop_length
-    if n_fft % hop != 0:
-        raise ValueError("direct-DFT mel kernel requires hop | n_fft")
-    if n_fft & (n_fft - 1) or n_fft > _MAX_N_FFT_DFT:
-        raise ValueError(f"direct-DFT mel kernel requires a power-of-two "
-                         f"n_fft <= {_MAX_N_FFT_DFT}")
+    if n_fft % hop != 0 or hop % 8 != 0:
+        raise ValueError("direct-DFT mel kernel requires hop | n_fft and "
+                         "8 | hop")
+    if n_fft & (n_fft - 1) or not 256 <= n_fft <= 2048:
+        raise ValueError("direct-DFT mel kernel requires a power-of-two "
+                         "n_fft from 256 to 2048")
+    if dft_smem_bytes(cfg) > _DFT_SMEM_LIMIT:
+        raise ValueError(f"direct-DFT mel kernel: a 64-frame tile at hop "
+                         f"{hop} needs {dft_smem_bytes(cfg)} bytes of shared "
+                         f"memory, over {_DFT_SMEM_LIMIT}")
     if n_samples <= n_fft // 2:
         raise ValueError(
             f"reflect pad of {n_fft // 2} needs more than {n_samples} samples"
         )
 
 
+_DFT_CHUNK = 128  # bins per chunk of the kernel
+_DFT_STAGE = 32  # K rows per stage of the kernel
+
+
+def _tf32_rna(x: np.ndarray) -> np.ndarray:
+    """float32 rounded to TF32 (10 mantissa bits), ties away from zero:
+    ``cvt.rna.tf32.f32``."""
+    u = x.astype(np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
 @functools.lru_cache(maxsize=8)
-def _trig_table(n_fft: int, device: torch.device) -> torch.Tensor:
-    """(n_fft, 2) float32 (cos, sin) of 2 pi m / n_fft, from float64."""
-    ang = 2.0 * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft
-    tab = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
-    return torch.from_numpy(tab).to(device)
+def _dft_tables(cfg: LogMelConfig, device: torch.device) -> tuple:
+    """The DFT kernel's basis and chunk table on the device.
+
+    basis: the periodic Hann window times cos and sin of 2 pi n k / n_fft
+    for n, k < n_fft / 2, each computed in float64 (the angle from
+    (n k) mod n_fft), rounded once to float32 and split into a TF32 high
+    part and a TF32 low part (the kernel's 3xTF32),
+    laid out as the kernel's stages: for each chunk of 128 bins and stage
+    of 32 rows n, [cos|sin][hi|lo] tiles of 8 x 4 core matrices
+    [n / 4][k / 8][k % 8][n % 4] (wgmma's K-major operand), each stage one
+    contiguous 64 KB.  chunk_mels: (n_chunks, 2) int32, the range of mel
+    bins whose triangle meets each chunk's bins (the last chunk also holds
+    the Nyquist bin n_fft / 2)."""
+    n_fft = cfg.n_fft
+    K = n_fft // 2
+    n_chunks, n_stages = K // _DFT_CHUNK, K // _DFT_STAGE
+    n = np.arange(K, dtype=np.int64)
+    ang = 2.0 * np.pi * ((n[:, None] * n[None, :]) % n_fft) / n_fft
+    hann = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / n_fft)  # periodic, float64
+    # each stage's 32 rows n in the kernel's order: row L of a stage (core
+    # matrix L / 4, column L % 4) holds n = 8 (L % 4) + 2 (L / 8) + (L / 4) % 2
+    L = np.arange(_DFT_STAGE)
+    order = (8 * (L % 4) + 2 * (L // 8) + (L // 4) % 2)
+    rows = (np.arange(n_stages)[:, None] * _DFT_STAGE + order[None]).reshape(-1)
+    ang, hann = ang[rows], hann[rows]
+    tiles = []
+    for trig in (np.cos, np.sin):
+        x = (hann[:, None] * trig(ang)).astype(np.float32)  # [row][k]
+        hi = _tf32_rna(x)
+        lo = _tf32_rna(x - hi)
+        tiles.append(np.stack([hi, lo]))  # [hi|lo][n][k]
+    t = np.stack(tiles)  # [kind][hl][n][k]
+    t = t.reshape(2, 2, n_stages, _DFT_STAGE // 4, 4, n_chunks, 16, 8)
+    # -> [chunk][stage][kind][hl][n / 4][k / 8][k % 8][n % 4]
+    basis = t.transpose(5, 2, 0, 1, 3, 6, 7, 4)
+    _, _, lo, hi, _, _ = _tables(cfg, torch.device("cpu"))
+    lo, hi = lo.numpy(), hi.numpy()
+    chunk_mels = np.zeros((n_chunks, 2), np.int32)
+    for c in range(n_chunks):
+        c0, c1 = c * _DFT_CHUNK, (c + 1) * _DFT_CHUNK + (c == n_chunks - 1)
+        meet = np.nonzero((lo < c1) & (hi > c0) & (hi > lo))[0]
+        if len(meet):
+            chunk_mels[c] = meet[0], meet[-1] + 1
+    return (torch.from_numpy(np.ascontiguousarray(basis)).to(device),
+            torch.from_numpy(chunk_mels).to(device))
 
 
 def log_mel_spectrogram_dft_cuda(
@@ -181,14 +252,14 @@ def log_mel_spectrogram_dft_cuda(
     if B == 0:
         return out
     hann, _, lo, hi, off, wts = _tables(cfg, wave.device)
-    trig = _trig_table(cfg.n_fft, wave.device)
+    basis, chunk_mels = _dft_tables(cfg, wave.device)
     lib = _build.load()
     stream = torch.cuda.current_stream(wave.device).cuda_stream
     status = lib.m2m_log_mel_dft(
-        wave.data_ptr(), out.data_ptr(), hann.data_ptr(), trig.data_ptr(),
+        wave.data_ptr(), out.data_ptr(), hann.data_ptr(), basis.data_ptr(),
         lo.data_ptr(), hi.data_ptr(), off.data_ptr(), wts.data_ptr(),
-        B, S, F, cfg.n_fft, cfg.hop_length, cfg.n_mels,
-        float(cfg.log_floor), stream,
+        chunk_mels.data_ptr(), B, S, F, cfg.n_fft, cfg.hop_length,
+        cfg.n_mels, float(cfg.log_floor), stream,
     )
     _build.check(status, "m2m_log_mel_dft")
     log_mel_spectrogram_dft_cuda.launches += 1

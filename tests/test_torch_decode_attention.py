@@ -19,7 +19,18 @@ round as its source reads.  Bars:
     wherever JAX's top-2 gap exceeds 0.125 (as ``test_torch_decode.py``);
   * ``generate_tokens`` with ``pallas_cross`` against JAX
     ``generate_tokens(pallas_cross=True)``: the same bar on the logits
-    along JAX's tokens, the free-running agreement recorded.
+    along JAX's tokens, the free-running agreement recorded;
+  * the serving route (``round_pv=True``, ``p * vs`` rounded to bf16)
+    against JAX ``_attention_int8``, the JAX engine's serving arithmetic:
+    equal bit for bit on every bf16 output.  That holds per draw, not by
+    construction: XLA's CPU ``exp`` and torch's differ in the last f32 bit
+    on some inputs and XLA's dot products sum in another order, so an
+    output can land on the other side of a bf16 rounding boundary.  The
+    TPU kernel's arithmetic (``round_pv=False``) misses on more than 10 %
+    of them;
+  * ``decode_step`` through the engine's route against JAX
+    ``decode_step(use_pallas=False)``, and ``generate_tokens`` against
+    JAX's serving ``generate_tokens``: the logit bar above.
 """
 
 import os
@@ -79,6 +90,15 @@ def _quantized(x):
 
 def _to_np(out):
     return np.asarray(out, dtype=np.float32)
+
+
+def _bf16_steps(a, b):
+    """Distance in bf16 steps between two float32 arrays of bf16 values
+    (sign and magnitude as one ordered integer)."""
+    def ordered(x):
+        u = (np.asarray(x, np.float32).view(np.uint32) >> 16).astype(np.int64)
+        return np.where(u & 0x8000, -(u & 0x7FFF), u)
+    return np.abs(ordered(a) - ordered(b))
 
 
 B, H, L, D = 8, 8, 64, 64
@@ -143,6 +163,69 @@ def test_int8_cross_plain_matches_jax_kernel(_interpret, qkv, enc_len):
     np.testing.assert_allclose(got.float().numpy(), ref, atol=0.05)
 
 
+def _serving_cases():
+    """(name, port kwargs, JAX _attention_int8 args) over one seeded draw:
+    cross at enc_len = L and below, causal at steps 0, mid and last over
+    the post-write cache (the port reads key ``step`` from the fresh
+    row, JAX from the cache it was written to)."""
+    rng = np.random.default_rng(0)
+    cases = []
+    Lc = 190
+    q = _normals(rng, B, H, 1, D)
+    (jk, pk), (jv, pv) = (_quantized(_normals(rng, B, H, Lc, D))
+                          for _ in range(2))
+    jq, pq = _bf16_q(q)
+    for enc_len in (Lc, 150):
+        mask = (jnp.arange(Lc) < enc_len)[None, None, None, :]
+        cases.append((f"cross-{enc_len}",
+                      (pq, pk, pv, None, None, None, None, False, enc_len),
+                      (jq, jk, jv, None, mask)))
+    q, k, v, k_new, v_new, bias = (_normals(rng, B, H, 1, D),
+                                   _normals(rng, B, H, L, D),
+                                   _normals(rng, B, H, L, D),
+                                   _normals(rng, B, H, 1, D),
+                                   _normals(rng, B, H, 1, D),
+                                   _normals(rng, 1, H, 1, L))
+    jq, pq = _bf16_q(q)
+    (_, pkn), (_, pvn) = _quantized(k_new), _quantized(v_new)
+    for step in (0, L // 2, L - 1):
+        k_w, v_w = k.copy(), v.copy()
+        k_w[:, :, step] = k_new[:, :, 0]
+        v_w[:, :, step] = v_new[:, :, 0]
+        (jk, pk), (jv, pv) = _quantized(k_w), _quantized(v_w)
+        vis = (jnp.arange(L) <= step)[None, None, None, :]
+        cases.append((f"causal-{step}",
+                      (pq, pk, pv, torch.from_numpy(bias), step, pkn, pvn,
+                       True),
+                      (jq, jk, jv, jnp.asarray(bias), vis)))
+    return cases
+
+
+SERVING_CASES = ("cross-190", "cross-150", "causal-0", f"causal-{L // 2}",
+                 f"causal-{L - 1}")
+
+
+@pytest.fixture(scope="module")
+def serving_cases():
+    return {name: (port, jax_args) for name, port, jax_args
+            in _serving_cases()}
+
+
+@pytest.mark.parametrize("case", SERVING_CASES)
+def test_serving_plain_matches_jax_attention_int8(serving_cases, case):
+    """The serving route's plain attention (``round_pv=True``) against JAX
+    ``_attention_int8``; the TPU kernel's arithmetic (the port's serving
+    route before ``round_pv``) misses the same outputs on >10 %."""
+    port, jax_args = serving_cases[case]
+    want = _to_np(jt5._attention_int8(*jax_args, jnp.bfloat16))
+    got = pda.decode_attention_int8(*port, round_pv=True).float().numpy()
+    steps = _bf16_steps(got, want)
+    print(f"{case}: {int((steps > 0).sum())} of {steps.size} outputs differ")
+    assert steps.max() == 0
+    old = pda.decode_attention_int8(*port, round_pv=False).float().numpy()
+    assert (_bf16_steps(old, want) > 0).mean() > 0.1
+
+
 CROSS_T_LEN, CROSS_T_ENC_LENS = 128, (100, 128)
 
 _CROSS_T_JAX = """
@@ -168,23 +251,19 @@ np.savez(sys.argv[2], **{
 """
 
 
-def _cross_t_inputs():
+def _cross_t_inputs(length=CROSS_T_LEN):
     rng = np.random.default_rng(3)
     q = _normals(rng, B, H, 1, D)
-    k = _normals(rng, B, H, CROSS_T_LEN, D)
-    v = _normals(rng, B, H, CROSS_T_LEN, D)
+    k = _normals(rng, B, H, length, D)
+    v = _normals(rng, B, H, length, D)
     return q, k, v
 
 
-@pytest.fixture(scope="module")
-def cross_t_jax(tmp_path_factory):
-    """The JAX transposed-cross kernel in interpret mode, in a process of
-    its own with ``--xla_allow_excess_precision=false``: without it XLA on
-    the CPU keeps the kernel's bf16 products in f32, which is not what the
-    kernel's source computes.  -> {enc_len: output}."""
-    d = tmp_path_factory.mktemp("cross_t")
-    q, k, v = _cross_t_inputs()
-    np.savez(d / "in.npz", q=q, k=k, v=v, enc_lens=np.array(CROSS_T_ENC_LENS))
+def _run_cross_t_jax(d, length, enc_lens):
+    """The JAX kernel on ``_cross_t_inputs(length)`` in its own process
+    (see ``cross_t_jax``) -> {enc_len: output}."""
+    q, k, v = _cross_t_inputs(length)
+    np.savez(d / "in.npz", q=q, k=k, v=v, enc_lens=np.array(enc_lens))
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS=(os.environ.get("XLA_FLAGS", "")
                           + " --xla_allow_excess_precision=false").strip(),
@@ -195,6 +274,16 @@ def cross_t_jax(tmp_path_factory):
                    timeout=300)
     out = np.load(d / "out.npz")
     return {int(n): out[n] for n in out.files}
+
+
+@pytest.fixture(scope="module")
+def cross_t_jax(tmp_path_factory):
+    """The JAX transposed-cross kernel in interpret mode, in a process of
+    its own with ``--xla_allow_excess_precision=false``: without it XLA on
+    the CPU keeps the kernel's bf16 products in f32, which is not what the
+    kernel's source computes.  -> {enc_len: output}."""
+    return _run_cross_t_jax(tmp_path_factory.mktemp("cross_t"), CROSS_T_LEN,
+                            CROSS_T_ENC_LENS)
 
 
 @pytest.mark.parametrize("enc_len", CROSS_T_ENC_LENS)
@@ -214,6 +303,68 @@ def test_cross_t_plain_matches_jax_kernel(cross_t_jax, enc_len):
     mask = (jnp.arange(Lx) < enc_len)[None, None, None, :]
     ref = _to_np(jt5._attention_int8(jq, jk, jv, None, mask, jnp.bfloat16))
     np.testing.assert_allclose(got.float().numpy(), ref, atol=0.08)
+
+
+PADDED_LEN, PADDED_ENC_LENS = 120, (100, 120)
+
+
+@pytest.fixture(scope="module")
+def cross_t_jax_padded(tmp_path_factory):
+    """``cross_t_jax`` at a length that is no multiple of 16."""
+    return _run_cross_t_jax(tmp_path_factory.mktemp("cross_t_pad"),
+                            PADDED_LEN, PADDED_ENC_LENS)
+
+
+@pytest.mark.parametrize("length", [PADDED_LEN, 190])
+def test_transpose_cross_entry_pads_rows_to_16_bytes(length):
+    """JAX's shape and values, a row stride of the length rounded up to
+    16 bytes, and zero pad bytes behind every row."""
+    rng = np.random.default_rng(4)
+    x = _normals(rng, 2, 3, length, D)
+    (jk, pk) = _quantized(x)
+    jt, js = da.transpose_cross_entry(jk)
+    pt, ps = pda.transpose_cross_entry(pk)
+    lp = -(-length // 16) * 16
+    assert pt.shape == jt.shape == (2, 3, D, length)
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
+    assert pt.stride() == (3 * D * lp, D * lp, lp, 1)
+    full = torch.as_strided(pt, (2, 3, D, lp), pt.stride())
+    assert not full[..., length:].any()
+
+
+@pytest.mark.parametrize("enc_len", PADDED_ENC_LENS)
+def test_cross_t_plain_matches_jax_kernel_on_padded_rows(cross_t_jax_padded,
+                                                         enc_len):
+    """``test_cross_t_plain_matches_jax_kernel`` on the padded layout of a
+    length that is no multiple of 16."""
+    q, k, v = _cross_t_inputs(PADDED_LEN)
+    _, pq = _bf16_q(q)
+    (_, pk), (_, pv) = _quantized(k), _quantized(v)
+    pkt, pvt = pda.transpose_cross_entry(pk), pda.transpose_cross_entry(pv)
+    assert pkt[0].stride(2) == 128
+    got = pda.decode_attention_cross_t(pq, pkt, pvt, enc_len=enc_len)
+    np.testing.assert_allclose(got.float().numpy(),
+                               cross_t_jax_padded[enc_len], rtol=1e-2,
+                               atol=1e-2)
+
+
+def test_cross_t_guards_raise_on_unpadded_rows():
+    """The transposed kernel's layout guard, without a card: rows 16-byte
+    aligned, and storage behind each row for the keys rounded up to 16."""
+    vals = torch.zeros(2, 2, 190, 16, dtype=torch.int8)
+    with pytest.raises(ValueError, match="16-byte"):
+        pda._check_padded_rows("kt", vals.transpose(2, 3).contiguous(), 190)
+    padded = pda.transpose_cross_entry((vals, torch.ones(2, 2, 1, 190)))[0]
+    pda._check_padded_rows("kt", padded, 190)
+    short = torch.zeros(2 * 2 * 16 * 176 - 6, dtype=torch.int8)
+    with pytest.raises(ValueError, match="padded"):
+        pda._check_padded_rows("kt", torch.as_strided(
+            short, (2, 2, 16, 170), (2 * 16 * 176, 16 * 176, 176, 1)), 170)
+    narrow = torch.zeros(2 * 2 * 16 * 160, dtype=torch.int8)
+    with pytest.raises(ValueError, match="padded"):
+        pda._check_padded_rows("kt", torch.as_strided(
+            narrow, (2, 2, 16, 150), (2 * 16 * 160, 16 * 160, 160, 1)), 170)
 
 
 def test_keys_past_the_visible_ones_change_nothing():
@@ -267,9 +418,10 @@ def _check_logits(lp, lj):
     np.testing.assert_array_equal(lp.argmax(-1)[clear], lj.argmax(-1)[clear])
 
 
-def _teacher_forced(model, route, tokens, max_len):
+def _teacher_forced(model, route, tokens, max_len, jax_pallas=True):
     """Step both engines' decode_step along `tokens` (B, T) in bf16 + int8
-    KV through `route`, holding every step's logits to the bar."""
+    KV through `route`, holding every step's logits to the bar; JAX's
+    decode_step with ``use_pallas=jax_pallas``."""
     tree, net, pcfg, enc = model
     B = tokens.shape[0]
     jcfg = jt5.T5Config(**SHAPE, dtype=jnp.bfloat16)
@@ -294,7 +446,7 @@ def _teacher_forced(model, route, tokens, max_len):
         tok = tokens[:, step]
         lj, jcache = jt5.decode_step(jdp, jnp.asarray(tok), jnp.int32(step),
                                      jcache, jcross, jcfg, max_len,
-                                     use_pallas=True)
+                                     use_pallas=jax_pallas)
         lp = pt5.decode_step(dp, torch.from_numpy(tok).long(), step, pcache,
                              pcross, pcfg, rows, use_pallas=True)
         _check_logits(lp.float().numpy(), np.asarray(lj).astype(np.float32))
@@ -312,6 +464,43 @@ def test_decode_step_routes_match_jax_pallas(_interpret, model, route):
     tokens = rng.integers(3, 400, size=(8, 12)).astype(np.int32)
     tokens[:, 0] = 1
     _teacher_forced(model, route, tokens, max_len=16)
+
+
+@pytest.mark.parametrize("route", ["int8", "cross_t"])
+def test_decode_step_serving_route_matches_jax_attention_int8(
+        _interpret, model, route):
+    """The engine's routes (the int8 kernel with ``round_pv`` in every
+    int8 block, or the self blocks with the cross blocks on the transposed
+    kernel) against JAX's serving decode_step, whose int8 blocks are
+    ``_attention_int8`` (``use_pallas=False``; with ``pallas_cross`` its
+    cross blocks take the transposed kernel, as the port's)."""
+    rng = np.random.default_rng(6)
+    tokens = rng.integers(3, 400, size=(8, 12)).astype(np.int32)
+    tokens[:, 0] = 1
+    _teacher_forced(model, route, tokens, max_len=16, jax_pallas=False)
+
+
+def test_generate_tokens_serving_route_matches_jax(model):
+    """The port's serving generate_tokens (int8 KV, the int8 kernel's
+    route with ``round_pv``) against the JAX engine's (int8 KV through
+    ``_attention_int8``): the logit bar along JAX's tokens, and the
+    free-running agreement recorded."""
+    tree, net, pcfg, enc = model
+    max_len = 20
+    jcfg = jt5.T5Config(**SHAPE, dtype=jnp.bfloat16)
+    jt, _ = jax_generate(
+        tree, jnp.asarray(enc).astype(jnp.bfloat16), jcfg,
+        JaxDecodeConfig(max_length=max_len, suppress_tokens=(2,),
+                        quantize_cross_kv=True, quantize_self_kv=True))
+    jt = np.array(jt)
+    _teacher_forced(model, "int8", jt[:, :-1], max_len, jax_pallas=False)
+    pt, _ = generate_tokens(net, torch.from_numpy(enc).to(torch.bfloat16),
+                            pcfg, DecodeConfig(
+                                max_length=max_len, suppress_tokens=(2,),
+                                quantize_kv=True, pallas_attention=True))
+    agree = float((pt.numpy()[:, 1:] == jt[:, 1:]).mean())
+    print(f"serving route bf16 free-running token agreement vs JAX: "
+          f"{agree:.4f}")
 
 
 def test_generate_tokens_pallas_cross_matches_jax(_interpret, model):

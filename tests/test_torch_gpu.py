@@ -79,22 +79,27 @@ def _close(got, ref, bar=2e-2):
     assert err <= bar, err
 
 
+@pytest.mark.parametrize("round_pv", [False, True])
 @pytest.mark.parametrize("step", [0, 63, 127, 1022])
-def test_int8_causal_kernel_matches_plain_on_card(card, step):
+def test_int8_causal_kernel_matches_plain_on_card(card, step, round_pv):
     """Over the whole 1024-long cache, and over the views the decode loop
     passes (the visible prefix and the bias row's window): 2e-2 on the
-    bf16 outputs."""
+    bf16 outputs, with ``p * vs`` in f32 (the TPU kernel's arithmetic) and
+    rounded to bf16 (the serving route's)."""
     q, k, v, kn, vn, bias = _int8_inputs(card, 1024, step)
     before = da.decode_attention_int8.launches
-    got = da.decode_attention_int8(q, k, v, bias, step, kn, vn, causal=True)
+    got = da.decode_attention_int8(q, k, v, bias, step, kn, vn, causal=True,
+                                   round_pv=round_pv)
     assert da.decode_attention_int8.launches == before + 1
     _close(got, da.decode_attention_int8_plain(q, k, v, bias, step, kn, vn,
-                                               causal=True))
+                                               causal=True,
+                                               round_pv=round_pv))
     n = step + 1
     k_pre = (k[0][:, :, :n], k[1][..., :n])
     v_pre = (v[0][:, :, :n], v[1][..., :n])
     _close(da.decode_attention_int8(q, k_pre, v_pre, bias[0, :, 0, :n],
-                                    step, kn, vn, causal=True), got, 0.0)
+                                    step, kn, vn, causal=True,
+                                    round_pv=round_pv), got, 0.0)
 
 
 def _cross_inputs(card, L, seed):
@@ -112,20 +117,33 @@ def _cross_inputs(card, L, seed):
     return q, proj(), proj()
 
 
+@pytest.mark.parametrize("round_pv", [False, True])
 @pytest.mark.parametrize("enc_len", [190, 150])
-def test_int8_cross_and_cross_t_kernels_match_plain_on_card(card, enc_len):
+def test_int8_cross_and_cross_t_kernels_match_plain_on_card(card, enc_len,
+                                                            round_pv):
+    """The int8 kernel's cross route with both ``round_pv`` settings, and
+    the transposed-cross kernel on the padded layout of
+    ``transpose_cross_entry`` (rows of 190 keys 192 bytes apart)."""
     q, k, v = _cross_inputs(card, 190, enc_len)
     assert k[0].stride(2) == 8 * 64
     got = da.decode_attention_int8(q, k, v, None, None, None, None,
-                                   causal=False, enc_len=enc_len)
+                                   causal=False, enc_len=enc_len,
+                                   round_pv=round_pv)
     _close(got, da.decode_attention_int8_plain(
-        q, k, v, None, None, None, None, causal=False, enc_len=enc_len))
+        q, k, v, None, None, None, None, causal=False, enc_len=enc_len,
+        round_pv=round_pv))
     kt, vt = da.transpose_cross_entry(k), da.transpose_cross_entry(v)
+    assert kt[0].shape == (64, 8, 64, 190) and kt[0].stride(2) == 192
     before = da.decode_attention_cross_t.launches
     got_t = da.decode_attention_cross_t(q, kt, vt, enc_len=enc_len)
     assert da.decode_attention_cross_t.launches == before + 1
     _close(got_t, da.decode_attention_cross_t_plain(q, kt, vt,
                                                     enc_len=enc_len))
+    # keys >= enc_len are masked whatever the pad bytes hold
+    for t in (kt[0], vt[0]):
+        torch.as_strided(t, (64, 8, 64, 192), t.stride())[..., 190:] = 127
+    _close(da.decode_attention_cross_t(q, kt, vt, enc_len=enc_len), got_t,
+           0.0)
 
 
 @pytest.mark.parametrize("pallas_cross", [False, True])
