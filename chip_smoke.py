@@ -27,12 +27,16 @@ and exits non-zero, and nothing is caught and passed over:
        1024-long int8 cache, causal at steps 0, 63, 127 and 1022, and
        cross at enc_len 190 = L and 150 on K/V laid out as
        ``precompute_cross_kv`` lays them out, with ``round_pv`` off (the
-       TPU kernel's arithmetic) and on (the serving route's); the
+       TPU kernel's arithmetic) and on (the serving route's); its launch
+       plan (``Int8AttentionPlan``) equal to it bit for bit; the
        transposed-cross kernel at (64, 8, 64, 190) on the padded rows of
        ``transpose_cross_entry``, enc_len 190 and 150; bar 2e-2 on the bf16
        outputs; yardstick: ``F.scaled_dot_product_attention`` over K/V
        dequantized to bf16 before the timed region; timed over six
-       inputs in turn, as the decode loop's six layers come;
+       inputs in turn, as the decode loop's six layers come: kernel 3 at
+       causal n = 32, 128 and 1023 and cross L = 190, ``round_pv`` on and
+       off, through the public function and through the launch plan, each
+       with its host-inclusive time beside sdpa's;
   4. serving path: ``Music2MIDI.from_npz(model of record, bf16)`` on the
      card, ``generate(audio_path=...)`` on the calibration fixture, the
      pinned ``check_midi`` gate, and the launch counts of this run (the
@@ -43,12 +47,14 @@ and exits non-zero, and nothing is caught and passed over:
   6. fp32 parity: the same fixture's greedy tokens through fp32 engines
      on the card and on the CPU, agreement >= 0.99;
   7. song timing: a synthetic 3-minute song through serving ``generate``,
-     one warm-up and three timed runs, a per-stage breakdown, and the
+     one warm-up (its kernel launches counted) and three timed runs, a
+     per-stage breakdown, and the
      decode stage with the attention kernels off and on (in turns) on
      the same encoder output, and the greedy tokens of the two routes
      (the kernel with ``round_pv``, and plain ``_attention_int8``);
   8. batch serving: ``warmup([128])``, then ``generate_batch`` over four
-     synthetic 3-minute songs, one warm-up and two timed runs;
+     synthetic 3-minute songs, one warm-up (its kernel launches counted)
+     and two timed runs;
   9. the ``kernels`` JSON line.
 
 The last line of standard output is
@@ -358,20 +364,35 @@ def attention_phase(smi: str) -> tuple:
             da.decode_attention_cross_t_plain(qt, kt, vt, enc_len),
             f"cross_t enc_len {enc_len}"))
 
+    # the engine's bias rows (H, L): key j of step s at column L - s - 1 + j
+    rows = [bias[0, :, 0, :] for *_, bias in self_sets]
+
+    def plans(rp):
+        """One launch plan a decode layer, over its self cache, bias rows
+        and cross-KV, as ``generate_tokens`` builds them."""
+        return [da.Int8AttentionPlan([(k, v)], r, [(ck, cv)], ENC_LEN,
+                                     round_pv=rp)
+                for (_, k, v, *_), r, (_, ck, cv) in zip(self_sets, rows,
+                                                         cross_sets)]
+
     def self_calls(step, rp):
         """The views the decode loop passes at `step`: the visible prefix
-        of the cache and the bias row's window, no copies."""
+        of the cache and the bias rows' window, no copies; and the same
+        call through each layer's launch plan."""
         n = step + 1
-        out = {"kernel": [], "plain": [], "library": []}
-        for q, k, v, kn, vn, bias in self_sets:
+        out = {"kernel": [], "plan": [], "plain": [], "library": []}
+        for (q, k, v, kn, vn, bias), r, plan in zip(self_sets, rows,
+                                                     plans(rp)):
             args = (q, (k[0][:, :, :n], k[1][..., :n]),
-                    (v[0][:, :, :n], v[1][..., :n]), bias[0, :, 0, :n],
+                    (v[0][:, :, :n], v[1][..., :n]), r[:, SELF_LEN - n:],
                     step, kn, vn, True, 0, rp)
             out["kernel"].append(lambda a=args: da.decode_attention_int8(*a))
+            out["plan"].append(
+                lambda p=plan, q=q, kn=kn, vn=vn: p.causal(0, q, kn, vn, step))
             out["plain"].append(
                 lambda a=args: da.decode_attention_int8_plain(*a))
             kd, vd = dequantized(k, n), dequantized(v, n)
-            mask = bias[..., :n].to(torch.bfloat16)
+            mask = r[None, :, None, SELF_LEN - n:].to(torch.bfloat16)
             out["library"].append(
                 lambda q=q, kd=kd, vd=vd, m=mask:
                 F.scaled_dot_product_attention(q, kd, vd, attn_mask=m,
@@ -379,8 +400,9 @@ def attention_phase(smi: str) -> tuple:
         return out
 
     def cross_calls(transposed, rp=False):
-        out = {"kernel": [], "plain": [], "library": []}
-        for (q, k, v), (_, kt, vt) in zip(cross_sets, cross_t_sets):
+        out = {"kernel": [], "plan": [], "plain": [], "library": []}
+        for (q, k, v), (_, kt, vt), plan in zip(cross_sets, cross_t_sets,
+                                                plans(rp)):
             if transposed:
                 args = (q, kt, vt, ENC_LEN)
                 out["kernel"].append(
@@ -391,6 +413,7 @@ def attention_phase(smi: str) -> tuple:
                 args = (q, k, v, None, None, None, None, False, ENC_LEN, rp)
                 out["kernel"].append(
                     lambda a=args: da.decode_attention_int8(*a))
+                out["plan"].append(lambda p=plan, q=q: p.cross(0, q))
                 out["plain"].append(
                     lambda a=args: da.decode_attention_int8_plain(*a))
             kd, vd = dequantized(k, ENC_LEN), dequantized(v, ENC_LEN)
@@ -399,16 +422,25 @@ def attention_phase(smi: str) -> tuple:
                 F.scaled_dot_product_attention(q, kd, vd, scale=1.0))
         return out
 
-    # kernel 3 with round_pv (the serving route's arithmetic) first: its
-    # causal step 1022 row heads the kernels line
+    # the launch plan runs the same kernel: equal bit for bit to the public
+    # function on the same operands
+    for calls in (self_calls(700, True), cross_calls(False, True)):
+        got, want = calls["plan"][0]().clone(), calls["kernel"][0]()
+        require(torch.equal(got, want), "launch plan vs decode_attention_int8")
+
+    # kernel 3 with round_pv (the serving route's arithmetic) first; most
+    # chunks end by step 110, so n = 32 is the common step
     timings = {"int8": [], "cross_t": []}
     for name, what, calls, n, causal in (
+            ("int8", "causal step 31 round_pv", self_calls(31, True), 32,
+             True),
             ("int8", "causal step 127 round_pv", self_calls(127, True), 128,
              True),
             ("int8", "causal step 1022 round_pv",
              self_calls(SELF_LEN - 2, True), SELF_LEN - 1, True),
             ("int8", "cross L 190 round_pv", cross_calls(False, True),
              ENC_LEN, False),
+            ("int8", "causal step 31", self_calls(31, False), 32, True),
             ("int8", "causal step 127", self_calls(127, False), 128, True),
             ("int8", "causal step 1022", self_calls(SELF_LEN - 2, False),
              SELF_LEN - 1, True),
@@ -416,6 +448,9 @@ def attention_phase(smi: str) -> tuple:
             ("cross_t", "cross L 190", cross_calls(True), ENC_LEN, False)):
         (ms, host_ms), (plain_ms, plain_host), (library_ms, lib_host) = \
             time_three(calls["kernel"], calls["plain"], calls["library"])
+        plan_ms = plan_host = None
+        if calls["plan"]:
+            plan_ms, plan_host = device_ms(rotating(calls["plan"]), 200)
         bound_ms, bound_by, nbytes, ops = attention_bound(
             B_SERVE, HEADS, D_KV, n, causal)
         timings[name].append({
@@ -423,11 +458,15 @@ def attention_phase(smi: str) -> tuple:
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "flops": ops, "host_ms": host_ms, "plain_host_ms": plain_host,
-            "library_host_ms": lib_host})
+            "library_host_ms": lib_host, "plan_ms": plan_ms,
+            "plan_host_ms": plan_host})
+        plan = ("" if plan_ms is None else
+                f" plan: device ms={plan_ms:.5f} host-inclusive ms="
+                f"{plan_host:.5f};")
         print(f"  {name} {what}: device ms={ms:.5f} plain_ms={plain_ms:.5f} "
               f"library_ms(sdpa, bf16 K/V)={library_ms:.5f} "
               f"bound_ms={bound_ms:.5f} ({bound_by}; {nbytes} B, {ops} flop)"
-              f"; host-inclusive ms: kernel={host_ms:.5f} "
+              f";{plan} host-inclusive ms: public function={host_ms:.5f} "
               f"plain={plain_host:.5f} library={lib_host:.5f} [{smi}]",
               flush=True)
 
@@ -439,9 +478,10 @@ def attention_phase(smi: str) -> tuple:
                                          "bound_by", "library_ms")},
                 "shape": head["shape"], "timings": timings[name]}
 
+    head = next(t for t in timings["int8"]
+                if t["shape"].startswith("causal step 1022 round_pv"))
     return (entry("int8", "music2midi_tpu_torch/csrc/decode_attention.cu",
-                  "music2midi_tpu/ops/decode_attention.py:155",
-                  timings["int8"][1]),
+                  "music2midi_tpu/ops/decode_attention.py:155", head),
             entry("cross_t", "music2midi_tpu_torch/csrc/decode_attention.cu",
                   "music2midi_tpu/ops/decode_attention.py:288",
                   timings["cross_t"][0]))
@@ -674,13 +714,13 @@ def main() -> int:
     with Phase("song_timing") as ph:
         times = []
         n_notes = 0
-        for i in range(4):
+        _, song_launches = launches_of(lambda: engine.generate(audio_y=song))
+        for i in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             midi = engine.generate(audio_y=song)
             torch.cuda.synchronize()
-            if i > 0:
-                times.append(time.perf_counter() - t0)
+            times.append(time.perf_counter() - t0)
             n_notes = len(midi.instruments[0].notes)
         require(n_notes > 0, "the 3-minute song gave no notes")
         p50 = float(np.median(times))
@@ -722,6 +762,7 @@ def main() -> int:
             agree_d += m
         ph.info = (f"p50_song_latency_s={p50:.4f} "
                    f"songs_per_min={60.0 / p50:.3f} runs_s={times} "
+                   f"launches={song_launches} "
                    f"notes={n_notes} chunks={stats[0]['real_rows']} "
                    f"bucket={len(batch)} "
                    f"decode_steps={[s['steps'] for s in stats]} "
@@ -745,13 +786,14 @@ def main() -> int:
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
         runs = []
-        for i in range(3):
+        _, batch_launches = launches_of(
+            lambda: engine.generate_batch(songs, cond_indices=conds))
+        for i in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             midis = engine.generate_batch(songs, cond_indices=conds)
             torch.cuda.synchronize()
-            if i > 0:
-                runs.append(time.perf_counter() - t0)
+            runs.append(time.perf_counter() - t0)
         notes = [len(m.instruments[0].notes) for m in midis]
         require(all(k > 0 for k in notes), f"a song gave no notes: {notes}")
         bstats = [{k: s[k] for k in ("batch_width", "real_rows", "steps",
@@ -764,6 +806,7 @@ def main() -> int:
                    for n in midis[0].instruments[0].notes}
         ph.info = (f"warmup_s={warm_s:.3f} runs_s={runs} "
                    f"songs_per_min={4 * 60.0 / med:.3f} notes={notes} "
+                   f"launches={batch_launches} "
                    f"last_decode_stats={bstats} "
                    f"song0_vs_generate: notes {len(batched)} vs "
                    f"{len(single)}, equal {len(batched & single)} [{smi}]")

@@ -1,6 +1,6 @@
 // Decode-step attention over int8 K/V caches for Hopper (sm_90a).
 //
-// Two kernels, one thread block per (batch row, head):
+// Two kernels:
 //
 //   decode_attention_int8_kernel<RoundPV> replaces
 //     music2midi_tpu/ops/decode_attention.py::decode_attention_int8
@@ -25,18 +25,40 @@
 //
 // Bound on the H100: the bytes of the int8 cache (4 flops per int8 byte
 // read, far under the card's ~20 fp32 flops per byte of HBM bandwidth).
-// One CTA per (b, h) is 512 CTAs at the serving batch of 64, one wave, so
-// a call takes one CTA's latency chain.
+// At the serving batch (B 64 x H 8 = 512 (b, h) pairs) one CTA per pair is
+// one wave of 4 CTAs an SM, so a call takes one CTA's chain of latencies,
+// and its speed at long key ranges is the bytes it keeps in flight.
 //
-// The int8 kernel: q and the score row in shared memory (4 bytes a
-// visible key), warp-shuffle reductions, 16-byte int8 row loads (4
-// threads per 64-byte key row); it reads only the visible keys and
-// overlaps nothing.
+// The int8 kernel, one CTA of 256 threads per (b, h), four threads per key
+// (16 dims each, keys tid / 4 + 64 i):
+//   * it requests first whatever waits on nothing: q, its first group of
+//     K rows (kUnroll 16-byte loads a thread, 128 keys), and the scale and
+//     bias rows of every visible key into shared memory by cp.async (16
+//     bytes a copy where a row is contiguous), the latter waited for only
+//     after the first group's dot products;
+//   * K and then V rows come through registers in groups, each group's
+//     loads in flight while the group before is summed; the first V group
+//     is asked for with the last K group, so it lands during the softmax;
+//     key `step`'s rows and scales come from the fresh rows;
+//   * int8 unpacks on the ALU (unpack4), the max and the sum take one
+//     barrier each, and the output's sum over a warp's keys halves its
+//     values at each level (14 shuffles a lane, not 48).
+// The keys map to threads and the sums run in the order of the kernel it
+// replaced (one 16-byte load a thread, the scales fetched after the dot
+// product), so the output is the same bit for bit, only sooner.  Tried on
+// the card and dropped, all slower than this: a split of long key ranges
+// over a thread-block cluster (2048 CTAs at n = 1023 ran as four waves of
+// CTAs that wait on each other), and a ring of key tiles in shared memory
+// fed by cp.async or TMA bulk copies (its copy issue held enough pointers
+// to need 64 to 90 registers, and lost at short n).  What bounds it: at
+// short n the chain (a 512-CTA launch, one trip to memory, two barriers,
+// the output's reduction); at long n the two groups of rows in flight a
+// thread (PERF.md).
 //
-// The transposed kernel shortens that chain.  Its rows are padded to 16
-// bytes (ops/decode_attention.py::transpose_cross_entry), so at the start
-// the CTA issues every 16-byte cp.async of its K tile and then of its V
-// tile (2 x 64 x 192 bytes at L = 190) into shared memory, and the V bytes
+// The transposed kernel: its rows are padded to 16 bytes
+// (ops/decode_attention.py::transpose_cross_entry), so at the start the
+// CTA issues every 16-byte cp.async of its K tile and then of its V tile
+// (2 x 64 x 192 bytes at L = 190) into shared memory, and the V bytes
 // arrive while the score pass runs.  The score pass reads K from shared
 // memory: warp w takes dims w, w + 8, ..., each lane 8 consecutive keys
 // as one 8-byte read (a warp reads one row contiguously), and the eight
@@ -56,6 +78,9 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kD = 64;  // head dim (d_kv) the kernels are written for
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxKeys = 4096;  // ops/decode_attention.py's MAX_KEYS
+constexpr int kUnroll = 2;  // the int8 kernel's 16-byte loads in flight a thread
+constexpr int kMinBlocks = 4;  // CTAs an SM the int8 kernel is built for
 
 // field order and types match the ctypes structures of
 // music2midi_tpu_torch/ops/decode_attention.py
@@ -99,162 +124,18 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
-// block-wide max / sum; `red` holds kWarps floats, free again on return
-__device__ float block_max(float v, float* red) {
-    v = warp_max(v);
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-    __syncthreads();
-    float r = red[0];
-    for (int w = 1; w < kWarps; ++w) r = fmaxf(r, red[w]);
-    __syncthreads();
-    return r;
-}
-
-__device__ float block_sum(float v, float* red) {
-    v = warp_sum(v);
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-    __syncthreads();
-    float r = 0.0f;
-    for (int w = 0; w < kWarps; ++w) r += red[w];
-    __syncthreads();
-    return r;
-}
-
-// the 16 signed bytes of a 16-byte load, as floats
-__device__ __forceinline__ void unpack16(const int4 raw, float* x) {
-    const int w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            x[4 * i + j] = static_cast<float>(static_cast<int8_t>(w[i] >> (8 * j)));
-        }
-    }
-}
-
-// softmax over s[0, n) in place, then s[l] *= scale(l); the block's
-// threads all take part
-template <typename Scale>
-__device__ void softmax_scaled(float* s, int n, float local_max, float* red,
-                               Scale scale) {
-    const float m = block_max(local_max, red);
-    float sum = 0.0f;
-    for (int l = threadIdx.x; l < n; l += kThreads) {
-        const float e = expf(s[l] - m);
-        s[l] = e;
-        sum += e;
-    }
-    sum = block_sum(sum, red);
-    for (int l = threadIdx.x; l < n; l += kThreads) s[l] = scale(l, s[l] / sum);
-    __syncthreads();
-}
-
 __device__ __forceinline__ float bf16_round(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <bool RoundPV>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_int8_kernel(const Int8AttnArgs a) {
-    extern __shared__ float s[];  // (n_keys,) scores, then p vs
-    __shared__ float red[kWarps];
-    __shared__ float part[kWarps][kD];
-
-    const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int c = tid & 3;  // this thread's 16 of the 64 dims
-    const int n = a.n_keys;
-    const bool causal = a.causal != 0;
-
-    const int8_t* kb = a.k + b * a.k_sb + h * a.k_sh;
-    const int8_t* vb = a.v + b * a.v_sb + h * a.v_sh;
-    const int8_t* kfresh = causal ? a.kn + b * a.kn_sb + h * a.kn_sh : nullptr;
-    const int8_t* vfresh = causal ? a.vn + b * a.vn_sb + h * a.vn_sh : nullptr;
-    const float* ksb = a.ks + b * a.ks_sb + h * a.ks_sh;
-    const float* vsb = a.vs + b * a.vs_sb + h * a.vs_sh;
-
-    float qf[16];
-    const __nv_bfloat16* qp = a.q + b * a.q_sb + h * a.q_sh + 16 * c;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) qf[i] = __bfloat162float(qp[i]);
-
-    // scores: four threads per key, eight keys per warp and pass; the loop
-    // is warp-uniform so the shuffles see every lane
-    float local_max = -INFINITY;
-    for (int base = warp * 8; base < n; base += kWarps * 8) {
-        const int l = base + (lane >> 2);
-        float acc = 0.0f;
-        if (l < n) {
-            const bool fresh = causal && l == a.step;
-            const int8_t* row = fresh ? kfresh : kb + l * a.k_sl;
-            float x[16];
-            unpack16(*reinterpret_cast<const int4*>(row + 16 * c), x);
-#pragma unroll
-            for (int i = 0; i < 16; ++i) acc = fmaf(x[i], qf[i], acc);
-        }
-        acc += __shfl_xor_sync(kFull, acc, 1);
-        acc += __shfl_xor_sync(kFull, acc, 2);
-        if (l < n && c == 0) {
-            const bool fresh = causal && l == a.step;
-            const float scale = fresh ? a.kns[b * a.kns_sb + h * a.kns_sh]
-                                      : ksb[l * a.ks_sl];
-            float sc = acc * scale;
-            if (causal) sc += a.bias[h * a.bias_sh + l * a.bias_sl];
-            s[l] = sc;
-            local_max = fmaxf(local_max, sc);
-        }
-    }
-    __syncthreads();
-
-    // the lambda captures scalars by value, not the kernel's argument
-    // struct (whose address would move it to local memory)
-    const float vn_scale = causal ? a.vns[b * a.vns_sb + h * a.vns_sh] : 0.0f;
-    const int step = a.step;
-    const int64_t vs_sl = a.vs_sl;
-    softmax_scaled(s, n, local_max, red, [=](int l, float p) {
-        const float pv = p * ((causal && l == step) ? vn_scale : vsb[l * vs_sl]);
-        return RoundPV ? bf16_round(pv) : pv;
-    });
-
-    // out[d] = sum_l s[l] v8[l][d]: thread (key group tid / 4, dims c)
-    float acc[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
-    for (int l = tid >> 2; l < n; l += kThreads / 4) {
-        const bool fresh = causal && l == a.step;
-        const int8_t* row = fresh ? vfresh : vb + l * a.v_sl;
-        float x[16];
-        unpack16(*reinterpret_cast<const int4*>(row + 16 * c), x);
-        const float w = s[l];
-#pragma unroll
-        for (int i = 0; i < 16; ++i) acc[i] = fmaf(w, x[i], acc[i]);
-    }
-    // sum the warp's eight key groups (lanes with the same c), then warps
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-        float v = acc[i];
-        v += __shfl_xor_sync(kFull, v, 4);
-        v += __shfl_xor_sync(kFull, v, 8);
-        v += __shfl_xor_sync(kFull, v, 16);
-        acc[i] = v;
-    }
-    if (lane < 4) {
-#pragma unroll
-        for (int i = 0; i < 16; ++i) part[warp][16 * lane + i] = acc[i];
-    }
-    __syncthreads();
-    if (tid < kD) {
-        float o = 0.0f;
-        for (int w = 0; w < kWarps; ++w) o += part[w][tid];
-        a.out[static_cast<int64_t>(blockIdx.x) * kD + tid] = __float2bfloat16_rn(o);
-    }
-}
-
-constexpr int kMaxCrossTKeys = 1024;  // ops/decode_attention.py's MAX_CROSS_T_KEYS
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
     const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -263,15 +144,7 @@ __device__ __forceinline__ void cp_async_commit() {
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// shared bytes of the transposed kernel for n keys: K and V tiles (64 rows
-// of `keys + 16` bytes), the eight warps' partial scores, the score row and
-// the two scale rows
-__host__ __device__ inline size_t cross_t_smem(int n) {
-    const size_t np = (n + 15) & ~15;
-    return 2 * kD * (np + 16) + (kWarps + 3) * np * sizeof(float);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // the four signed bytes of a word as exact floats, on the ALU rather than
@@ -283,6 +156,249 @@ __device__ __forceinline__ void unpack4(unsigned w, float* x) {
     for (int j = 0; j < 4; ++j) {
         x[j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + j)) - 8388736.0f;
     }
+}
+
+// 16 bytes of global memory into registers, asked for now (a volatile
+// asm keeps the load where it is written)
+__device__ __forceinline__ uint4 load16(const void* p) {
+    uint4 r;
+    asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w) : "l"(p));
+    return r;
+}
+
+// eight bf16 of a 16-byte word as floats
+__device__ __forceinline__ void bf16x8(const uint4 w, float* x) {
+    const unsigned u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        x[2 * i] = __uint_as_float(u[i] << 16);
+        x[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    }
+}
+
+// the 16 signed bytes of a 16-byte word as floats
+__device__ __forceinline__ void unpack16(const uint4 w, float* x) {
+    unpack4(w.x, x);
+    unpack4(w.y, x + 4);
+    unpack4(w.z, x + 8);
+    unpack4(w.w, x + 12);
+}
+
+// one level of a halving warp reduction over v[0, 2 H): a lane keeps the
+// half `upper` names, sends the other to lane ^ `mask`, and adds what it
+// gets: v[i] = kept[i] + partner's kept[i] for i < H
+template <int H>
+__device__ __forceinline__ void halve(float* v, int upper, int mask) {
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+        const float send = upper ? v[i] : v[i + H];
+        const float keep = upper ? v[i + H] : v[i];
+        v[i] = keep + __shfl_xor_sync(kFull, send, mask);
+    }
+}
+
+// n floats of a row at stride `sl` into shared memory by cp.async: 16
+// bytes a copy where the row is contiguous and aligned (the remainder,
+// under four floats, 4 bytes a copy), else 4 bytes a copy; every thread of
+// the block takes part
+__device__ __forceinline__ void copy_row(float* dst, const float* src, int64_t sl,
+                                         int n) {
+    const int i = threadIdx.x;
+    if (sl == 1 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+        for (int k = 4 * i; k + 4 <= n; k += 4 * kThreads) cp_async16(dst + k, src + k);
+        const int k = (n & ~3) + i;
+        if (k < n) cp_async4(dst + k, src + k);
+    } else {
+        for (int k = i; k < n; k += kThreads) cp_async4(dst + k, src + k * sl);
+    }
+}
+
+template <bool RoundPV>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+decode_attention_int8_kernel(const Int8AttnArgs a) {
+    // (n,) each: scores (then exp(score - max)), k scales, v scales, bias
+    extern __shared__ __align__(16) float s[];
+    __shared__ float red_max[kWarps], red_sum[kWarps];
+    __shared__ float part[kWarps][kD];
+
+    const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int c = tid & 3;   // this thread's 16 of the 64 dims
+    const int j = tid >> 2;  // and its key of every 64
+    const int n = a.n_keys, np = (n + 3) & ~3;
+    const bool causal = a.causal != 0;
+    const int step = a.step;
+    float* ks_s = s + np;
+    float* vs_s = ks_s + np;
+    float* bias_s = vs_s + np;
+
+    // first every request that does not wait on another: q, the first
+    // group of K rows, and the scale and bias rows into shared memory
+    const __nv_bfloat16* qp = a.q + b * a.q_sb + h * a.q_sh + 16 * c;
+    const uint4 q_lo = load16(qp), q_hi = load16(qp + 8);
+    // group g's loads: for u < kUnroll, this thread's 16-byte piece of the
+    // K or V row of key 64 (kUnroll g + u) + tid / 4 (key `step`'s from
+    // the fresh row)
+    auto load = [&](bool is_k, int base, uint4* row) {
+        const int8_t* rows = is_k ? a.k + b * a.k_sb + h * a.k_sh
+                                  : a.v + b * a.v_sb + h * a.v_sh;
+        const int64_t sl = is_k ? a.k_sl : a.v_sl;
+        const int8_t* fresh = is_k ? a.kn + b * a.kn_sb + h * a.kn_sh
+                                   : a.vn + b * a.vn_sb + h * a.vn_sh;
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+            const int l = base + 64 * u + j;
+            if (l < n) row[u] = load16((causal && l == step ? fresh : rows + l * sl) + 16 * c);
+        }
+    };
+    uint4 cur[kUnroll], nxt[kUnroll];
+    load(true, 0, cur);
+    copy_row(ks_s, a.ks + b * a.ks_sb + h * a.ks_sh, a.ks_sl, n);
+    copy_row(vs_s, a.vs + b * a.vs_sb + h * a.vs_sh, a.vs_sl, n);
+    if (causal) copy_row(bias_s, a.bias + h * a.bias_sh, a.bias_sl, n);
+    cp_async_commit();
+    // key `step`'s scales from the fresh scales (the rows copied above hold
+    // that key's cache entry)
+    const float kn_scale = causal ? a.kns[b * a.kns_sb + h * a.kns_sh] : 0.0f;
+    const float vn_scale = causal ? a.vns[b * a.vns_sb + h * a.vns_sh] : 0.0f;
+    float qf[16];
+    bf16x8(q_lo, qf);
+    bf16x8(q_hi, qf + 8);
+
+    // scores: four threads per key, a group of kUnroll keys' rows in
+    // flight while the group before is summed; the scale and bias rows
+    // are waited for after the first group's dot products
+    float m = -INFINITY;
+    for (int base = 0; base < n; base += 64 * kUnroll) {
+        if (base + 64 * kUnroll < n) load(true, base + 64 * kUnroll, nxt);
+        float dot[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+            float acc = 0.0f;
+            if (base + 64 * u + j < n) {
+                float x[16];
+                unpack16(cur[u], x);
+#pragma unroll
+                for (int i = 0; i < 16; ++i) acc = fmaf(x[i], qf[i], acc);
+            }
+            acc += __shfl_xor_sync(kFull, acc, 1);
+            dot[u] = acc + __shfl_xor_sync(kFull, acc, 2);
+        }
+        if (base == 0) {
+            cp_async_wait<0>();
+            __syncthreads();
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+            const int l = base + 64 * u + j;
+            const float acc = dot[u];
+            if (l < n && c == 0) {
+                float sc = acc * (causal && l == step ? kn_scale : ks_s[l]);
+                if (causal) sc += bias_s[l];
+                s[l] = sc;
+                m = fmaxf(m, sc);
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) cur[u] = nxt[u];
+    }
+    load(false, 0, cur);  // the first V group lands during the softmax
+
+    m = warp_max(m);
+    if (lane == 0) red_max[warp] = m;
+    __syncthreads();
+    m = red_max[0];
+    for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red_max[w]);
+    float sum = 0.0f;
+    for (int l = tid; l < n; l += kThreads) {
+        const float e = expf(s[l] - m);
+        s[l] = e;
+        sum += e;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) red_sum[warp] = sum;
+    __syncthreads();
+    sum = 0.0f;
+    for (int w = 0; w < kWarps; ++w) sum += red_sum[w];
+
+    // out[d] = sum_l (p_l vs_l) v8[l][d]: thread (keys tid / 4 + 64 i,
+    // dims c)
+    float acc[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
+    for (int base = 0; base < n; base += 64 * kUnroll) {
+        if (base + 64 * kUnroll < n) load(false, base + 64 * kUnroll, nxt);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+            const int l = base + 64 * u + j;
+            if (l < n) {
+                const float pv = s[l] / sum * (causal && l == step ? vn_scale : vs_s[l]);
+                const float w = RoundPV ? bf16_round(pv) : pv;
+                float x[16];
+                unpack16(cur[u], x);
+#pragma unroll
+                for (int i = 0; i < 16; ++i) acc[i] = fmaf(w, x[i], acc[i]);
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) cur[u] = nxt[u];
+    }
+    // sum the warp's eight keys (lanes with the same c) by halving: at the
+    // level of lane bit 2 + k each lane keeps half of its sums and adds
+    // its partner's, 14 shuffles in all where an all-reduce takes 48 (the
+    // same additions in the same order); lane (c, g) ends with dims
+    // 16 c + 2 rev3(g) + {0, 1}; then the warps
+    halve<8>(acc, lane & 4, 4);
+    halve<4>(acc, lane & 8, 8);
+    halve<2>(acc, lane & 16, 16);
+    const int d0 = 16 * c + 8 * ((lane >> 2) & 1) + 4 * ((lane >> 3) & 1)
+        + 2 * ((lane >> 4) & 1);
+    part[warp][d0] = acc[0];
+    part[warp][d0 + 1] = acc[1];
+    __syncthreads();
+    if (tid < kD) {
+        float o = 0.0f;
+        for (int w = 0; w < kWarps; ++w) o += part[w][tid];
+        a.out[static_cast<int64_t>(blockIdx.x) * kD + tid] = __float2bfloat16_rn(o);
+    }
+}
+
+// dynamic shared memory up to `bytes` (above 48 KB only so opted in);
+// once per kernel
+template <typename Kernel>
+bool allow_smem(Kernel kernel, size_t bytes) {
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(bytes)) == cudaSuccess;
+}
+
+int launch_int8(const Int8AttnArgs& a, int pairs, void* stream) {
+    if (a.n_keys < 1 || a.n_keys > kMaxKeys) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    // the score, scale and bias rows: 16 KB at 1024 keys, 64 at MAX_KEYS
+    const size_t smem = 4 * static_cast<size_t>((a.n_keys + 3) & ~3) * sizeof(float);
+    static const bool opted =
+        allow_smem(decode_attention_int8_kernel<false>, 16 * kMaxKeys)
+        && allow_smem(decode_attention_int8_kernel<true>, 16 * kMaxKeys);
+    if (!opted) return static_cast<int>(cudaErrorInvalidValue);
+    if (a.round_pv) {
+        decode_attention_int8_kernel<true><<<pairs, kThreads, smem, st>>>(a);
+    } else {
+        decode_attention_int8_kernel<false><<<pairs, kThreads, smem, st>>>(a);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int kMaxCrossTKeys = 1024;  // ops/decode_attention.py's MAX_CROSS_T_KEYS
+
+// shared bytes of the transposed kernel for n keys: K and V tiles (64 rows
+// of `keys + 16` bytes), the eight warps' partial scores, the score row and
+// the two scale rows
+__host__ __device__ inline size_t cross_t_smem(int n) {
+    const size_t np = (n + 15) & ~15;
+    return 2 * kD * (np + 16) + (kWarps + 3) * np * sizeof(float);
 }
 
 // a + bf16(x) and then b + bf16(y): one packed conversion rounds both
@@ -432,17 +548,28 @@ decode_attention_cross_t_kernel(const CrossTArgs a) {
 
 }  // namespace
 
-extern "C" int m2m_decode_attention_int8(const void* args, int blocks,
-                                         void* stream) {
-    const Int8AttnArgs a = *static_cast<const Int8AttnArgs*>(args);
-    const size_t smem = static_cast<size_t>(a.n_keys) * sizeof(float);
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (a.round_pv) {
-        decode_attention_int8_kernel<true><<<blocks, kThreads, smem, st>>>(a);
-    } else {
-        decode_attention_int8_kernel<false><<<blocks, kThreads, smem, st>>>(a);
+// One launch of the int8 kernel: the argument block with the fields that
+// stay fixed over a generation (ops/decode_attention.py packs it once per
+// cache buffer), and what moves from call to call: q, and for the causal
+// kernel this step's fresh rows, the bias row's window and the step.
+extern "C" int m2m_decode_attention_int8(
+    const void* args, int pairs, const void* q, long long q_sb, long long q_sh,
+    const void* kn, const void* vn, const void* kns, const void* vns,
+    const void* bias, int step, void* stream) {
+    Int8AttnArgs a = *static_cast<const Int8AttnArgs*>(args);
+    a.q = static_cast<const __nv_bfloat16*>(q);
+    a.q_sb = q_sb;
+    a.q_sh = q_sh;
+    if (a.causal) {
+        a.kn = static_cast<const int8_t*>(kn);
+        a.vn = static_cast<const int8_t*>(vn);
+        a.kns = static_cast<const float*>(kns);
+        a.vns = static_cast<const float*>(vns);
+        a.bias = static_cast<const float*>(bias);
+        a.step = step;
+        a.n_keys = step + 1;
     }
-    return static_cast<int>(cudaGetLastError());
+    return launch_int8(a, pairs, stream);
 }
 
 extern "C" int m2m_decode_attention_cross_t(const void* args, int blocks,
@@ -451,13 +578,10 @@ extern "C" int m2m_decode_attention_cross_t(const void* args, int blocks,
     if (a.n_keys < 1 || a.n_keys > kMaxCrossTKeys) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
-    const size_t smem = cross_t_smem(a.n_keys);
-    if (smem > 48 * 1024) {  // 34 KB at L = 190; above 48 KB only opted in
-        const cudaError_t err = cudaFuncSetAttribute(
-            decode_attention_cross_t_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
+    const size_t smem = cross_t_smem(a.n_keys);  // 34 KB at L = 190
+    static const bool opted = allow_smem(decode_attention_cross_t_kernel,
+                                         cross_t_smem(kMaxCrossTKeys));
+    if (!opted) return static_cast<int>(cudaErrorInvalidValue);
     decode_attention_cross_t_kernel<<<blocks, kThreads, smem,
                                       static_cast<cudaStream_t>(stream)>>>(a);
     return static_cast<int>(cudaGetLastError());

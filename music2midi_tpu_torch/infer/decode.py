@@ -13,7 +13,9 @@ check reads one boolean back to the host every step.
 ``DecodeConfig.pallas_attention`` and ``pallas_cross`` keep the JAX field
 names: they route the int8 attention blocks through the decode-attention
 kernels (``ops/decode_attention.py``), which run as CUDA kernels on CUDA
-tensors and as their plain versions on CPU tensors.  The JAX package's
+tensors and as their plain versions on CPU tensors; the int8 kernel's
+calls go through a launch plan built once per generation over the caches
+(``models/t5.py::int8_attention_plan``).  The JAX package's
 conditions of a TPU backend and a batch multiple of its block do not
 apply.
 """
@@ -30,6 +32,7 @@ from ..models.t5 import (
     decode_step,
     decoder_bias_rows,
     init_kv_cache,
+    int8_attention_plan,
     precompute_cross_kv,
     prepare_decode_params,
     transpose_cross_kv,
@@ -64,11 +67,13 @@ def generate_tokens(
                                    quantize=dcfg.quantize_kv)
     if dcfg.pallas_cross and dcfg.quantize_kv:
         cross_kv = transpose_cross_kv(cross_kv)
-    use_pallas = dcfg.pallas_attention and dcfg.quantize_kv
     dparams = prepare_decode_params(model, cfg)
     bias_rows = decoder_bias_rows(dparams["rel_bias"], max_len, cfg)
     cache = init_kv_cache(B, max_len, cfg, quantize=dcfg.quantize_kv,
                           device=dev)
+    # the int8 kernel's launch plan: the caches checked and packed once
+    plan = int8_attention_plan(cache, cross_kv, bias_rows) \
+        if dcfg.pallas_attention and dcfg.quantize_kv else None
     suppress = list(dcfg.suppress_tokens)
 
     tokens = torch.full((B, max_len), cfg.pad_token_id, dtype=torch.int32,
@@ -78,7 +83,7 @@ def generate_tokens(
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     for step in range(max_len - 1):
         logits = decode_step(dparams, token, step, cache, cross_kv, cfg,
-                             bias_rows, use_pallas)
+                             bias_rows, plan)
         if suppress:
             logits[:, suppress] = -float("inf")
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)

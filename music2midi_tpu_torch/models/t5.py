@@ -25,12 +25,14 @@ the cache only.  That is the JAX package's causal mask (-1e9 on keys after
 columns.  The cross-KV is not padded to a multiple of 128: that pad is a
 TPU lane-layout choice, and the unpadded keys give the same outputs.
 
-With ``use_pallas`` the int8 attention blocks of ``decode_step`` go
-through the decode-attention kernels of ``ops/decode_attention.py`` (the
-JAX package's Pallas route, same flag name); a transposed cross-KV
-(``CrossKV.transposed``) always takes the transposed-cross kernel.  Those
-wrappers run the CUDA kernels on CUDA tensors and their plain versions on
-CPU tensors.
+Given an ``Int8AttentionPlan`` over its caches (``int8_attention_plan``;
+the JAX package's ``use_pallas`` route), ``decode_step`` sends the int8
+attention blocks through the int8 decode-attention kernel of
+``ops/decode_attention.py``, with the caches' checks and argument packing
+done once a generation instead of on every call; a transposed cross-KV
+(``CrossKV.transposed``) always takes the transposed-cross kernel.  Both
+run as CUDA kernels on CUDA tensors and as their plain versions on CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -43,8 +45,8 @@ import torch
 from torch import nn
 
 from ..ops.decode_attention import (
+    Int8AttentionPlan,
     decode_attention_cross_t,
-    decode_attention_int8,
     transpose_cross_entry,
 )
 
@@ -546,6 +548,16 @@ def decoder_bias_rows(rel_bias: torch.Tensor, max_len: int,
     return rel_bias[buckets].transpose(0, 1)
 
 
+def int8_attention_plan(kv_cache: list, cross_kv: CrossKV,
+                        bias_rows: torch.Tensor) -> Int8AttentionPlan:
+    """The launch plan of the int8 kernel over one generation's int8 self
+    cache and, unless it is transposed (``decode_attention_cross_t``), its
+    int8 cross-KV, with ``round_pv`` as the engine serves."""
+    cross = None if cross_kv.transposed else cross_kv.layers
+    return Int8AttentionPlan(kv_cache, bias_rows, cross, cross_kv.enc_len,
+                             round_pv=True)
+
+
 def _write_kv(entry, new: torch.Tensor, step: int):
     """Write this step's (B, H, 1, D) K or V row into a cache entry, in
     place: a plain buffer, or an int8 (values, scales) pair (the row is
@@ -578,20 +590,21 @@ def decode_step(
     cross_kv: CrossKV,
     cfg: T5Config,
     bias_rows: torch.Tensor,  # decoder_bias_rows(...)
-    use_pallas: bool = False,  # decode-attention kernels for int8 caches
+    plan: Optional[Int8AttentionPlan] = None,  # int8_attention_plan(...)
 ) -> torch.Tensor:
     """One incremental decoder step -> logits (B, vocab).  Writes this
     step's K/V into ``kv_cache`` at ``step`` and attends over [0, step].
 
-    Routes, as the JAX ``decode_step``: with ``use_pallas`` an int8 self
-    cache goes through ``decode_attention_int8(causal=True)`` and an int8
-    cross-KV through ``decode_attention_int8(causal=False)``; a transposed
-    cross-KV always goes through ``decode_attention_cross_t``; otherwise
-    ``_attention_int8`` (int8) or ``attention``.  The int8 kernel runs
-    with ``round_pv``, so it computes ``_attention_int8``'s arithmetic
-    (``p * vs`` rounded to bf16), the JAX engine's serving route, in the
-    self blocks of the ``pallas_cross`` route too, as there.  The kernels
-    are handed views of the cache buffers, never copies."""
+    Routes, as the JAX ``decode_step``: with a ``plan`` (built over these
+    caches by ``int8_attention_plan``; JAX's ``use_pallas``) an int8 self
+    cache goes through ``plan.causal`` and an int8 cross-KV through
+    ``plan.cross``, the int8 kernel; a transposed cross-KV always goes
+    through ``decode_attention_cross_t``; otherwise ``_attention_int8``
+    (int8) or ``attention``.  The int8 kernel runs with ``round_pv``, so
+    it computes ``_attention_int8``'s arithmetic (``p * vs`` rounded to
+    bf16), the JAX engine's serving route, in the self blocks of the
+    ``pallas_cross`` route too, as there.  The kernels read the cache
+    buffers in place, never copies."""
     dt = cfg.dtype
     H, D = cfg.num_heads, cfg.d_kv
     x = dparams["embedding"][token][:, None]  # (B, 1, d_model)
@@ -607,10 +620,8 @@ def decode_step(
         k_newq = _write_kv(k_entry, k_new, step)
         v_newq = _write_kv(v_entry, v_new, step)
         k_seen, v_seen = _prefix(k_entry, n), _prefix(v_entry, n)
-        if k_newq is not None and use_pallas:
-            h = decode_attention_int8(q, k_seen, v_seen, bias_2d, step,
-                                      k_newq, v_newq, causal=True,
-                                      round_pv=True)
+        if k_newq is not None and plan is not None:
+            h = plan.causal(i, q, k_newq, v_newq, step)
         elif k_newq is not None:
             h = _attention_int8(q, k_seen, v_seen, bias_row, None, dt)
         else:
@@ -621,10 +632,8 @@ def decode_step(
         ck, cv = cross_kv.layers[i]
         if cross_kv.transposed:
             a = decode_attention_cross_t(q, ck, cv, enc_len=cross_kv.enc_len)
-        elif isinstance(ck, tuple) and use_pallas:
-            a = decode_attention_int8(q, ck, cv, None, None, None, None,
-                                      causal=False, enc_len=cross_kv.enc_len,
-                                      round_pv=True)
+        elif isinstance(ck, tuple) and plan is not None:
+            a = plan.cross(i, q)
         elif isinstance(ck, tuple):
             a = _attention_int8(q, ck, cv, None, None, dt)
         else:

@@ -35,14 +35,19 @@ NVCC_FLAGS = [
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
 _c_float = ctypes.c_float
+_c_int64 = ctypes.c_int64
 
 # argtypes of every exported launcher: pointers and the stream as
 # c_void_p (a bare Python int would be passed as a 32-bit int)
 _SIGNATURES = {
-    "m2m_log_mel_fft": [_c_void_p] * 8 + [_c_int] * 6 + [_c_float, _c_void_p],
+    "m2m_log_mel_fft": [_c_void_p] * 9 + [_c_int] * 6 + [_c_float, _c_void_p],
     "m2m_log_mel_dft": [_c_void_p] * 9 + [_c_int] * 6 + [_c_float, _c_void_p],
+    # (argument block, (b, h) pairs, q, q_sb, q_sh, fresh k, v, k scale,
+    # v scale, bias window, step, stream)
+    "m2m_decode_attention_int8": [_c_void_p, _c_int, _c_void_p, _c_int64,
+                                  _c_int64] + [_c_void_p] * 5
+                                 + [_c_int, _c_void_p],
     # (pointer to the argument struct, number of blocks, stream)
-    "m2m_decode_attention_int8": [_c_void_p, _c_int, _c_void_p],
     "m2m_decode_attention_cross_t": [_c_void_p, _c_int, _c_void_p],
 }
 

@@ -31,7 +31,11 @@ with the TPU kernel's arguments and arithmetic:
 A CUDA tensor goes to the hand-written kernel in
 ``csrc/decode_attention.cu`` (built by ``ops/_build.py`` at first use) and
 a failed launch raises; a CPU tensor goes to the plain PyTorch version
-beside it (``*_plain``).  The tensor's device decides.
+beside it (``*_plain``).  The tensor's device decides.  The decode loop
+calls the int8 kernel through ``Int8AttentionPlan``, which checks and
+packs a generation's caches once, so that a call costs the host a few
+microseconds where ``decode_attention_int8`` checks and packs every
+operand on every call.
 
 The port writes this step's row into the self cache before the call, so
 the fresh-row patch of the causal kernel recomputes a value that is
@@ -57,8 +61,8 @@ import torch
 
 from . import _build
 
-MAX_KEYS = 4096  # visible keys per call: the score row lives in shared
-# memory (4 bytes a key, 16 KB at this maximum)
+MAX_KEYS = 4096  # visible keys per call: the score, scale and bias rows
+# live in shared memory (16 bytes a key, 64 KB at this maximum)
 MAX_CROSS_T_KEYS = 1024  # the transposed-cross kernel stages all of K
 # and V in shared memory, 2 x 64 x (keys + 16) bytes, beside 11 floats a
 # key: 178 KB at this maximum
@@ -67,6 +71,7 @@ HEAD_DIM = 64  # the kernels are written for d_kv = 64
 Entry = Tuple[torch.Tensor, torch.Tensor]  # (int8 values, f32 scales)
 
 _NEG = -1e9
+_BIAS_DTYPES = (torch.float32, torch.bfloat16)  # a launch plan's bias rows
 
 
 # --------------------------------------------------------------------- #
@@ -249,12 +254,20 @@ def _check_f32(name: str, t: torch.Tensor, shape: tuple) -> None:
                          f"{tuple(t.shape)}")
 
 
+def _q_aligned(q: torch.Tensor, q_strides) -> bool:
+    """Each (b, h) row of q starts 16 bytes aligned, with a unit last
+    stride: the kernels read it 16 bytes at a time."""
+    return (q_strides[3] == 1 and q.data_ptr() % 16 == 0
+            and q_strides[0] % 8 == 0 and q_strides[1] % 8 == 0)
+
+
 def _query(q: torch.Tensor, B: int, H: int, D: int) -> torch.Tensor:
-    """q as bf16 (B, H, 1, D) with a unit last stride (a view if it is)."""
+    """q as bf16 (B, H, 1, D) with 16-byte aligned rows (a view if it
+    has them)."""
     if tuple(q.shape) != (B, H, 1, D):
         raise ValueError(f"q: needs {(B, H, 1, D)}, got {tuple(q.shape)}")
     q = q.to(torch.bfloat16)
-    return q if q.stride(-1) == 1 else q.contiguous()
+    return q if _q_aligned(q, q.stride()) else q.contiguous()
 
 
 def _on_card(*tensors: torch.Tensor) -> None:
@@ -266,6 +279,66 @@ def _on_card(*tensors: torch.Tensor) -> None:
 # --------------------------------------------------------------------- #
 # wrappers                                                               #
 # --------------------------------------------------------------------- #
+
+
+def _check_head_dim(D: int) -> None:
+    if D != HEAD_DIM:
+        raise ValueError(f"decode attention kernel needs d_kv {HEAD_DIM}, "
+                         f"got {D}")
+
+
+def _visible_keys(causal: bool, step, enc_len: int, L: int) -> int:
+    """Keys the kernel reads: 0..step (causal) or 0..enc_len-1 (cross)."""
+    if causal:
+        if not 0 <= int(step) < L:
+            raise ValueError(f"step {step} outside the cache length {L}")
+        n_keys = int(step) + 1
+    else:
+        n_keys = L if enc_len <= 0 else int(enc_len)
+        if n_keys > L:
+            raise ValueError(f"enc_len {n_keys} > cache length {L}")
+    if n_keys > MAX_KEYS:
+        raise ValueError(f"decode attention kernel takes at most {MAX_KEYS} "
+                         f"visible keys, got {n_keys}")
+    return n_keys
+
+
+def _pack_int8(k_entry: Entry, v_entry: Entry, n_keys: int, causal: bool,
+               round_pv: bool, out: torch.Tensor):
+    """Check int8 K/V buffers and their scales as the kernel reads them
+    (16-byte rows through their strides, f32 scales at any stride) and pack
+    the argument fields they fix; q, the fresh rows, the bias and the step
+    are set per launch."""
+    k8, ks = k_entry
+    v8, vs = v_entry
+    _check_int8("k", k8, 4)
+    _check_int8("v", v8, 4)
+    B, H, L, D = k8.shape
+    if tuple(v8.shape) != (B, H, L, D):
+        raise ValueError(f"v: needs {(B, H, L, D)}, got {tuple(v8.shape)}")
+    _check_f32("k scales", ks, (B, H, 1, L))
+    _check_f32("v scales", vs, (B, H, 1, L))
+    _on_card(k8, v8, ks, vs, out)
+    return _Int8Args(
+        k=k8.data_ptr(), v=v8.data_ptr(), ks=ks.data_ptr(), vs=vs.data_ptr(),
+        out=out.data_ptr(),
+        k_sb=k8.stride(0), k_sh=k8.stride(1), k_sl=k8.stride(2),
+        v_sb=v8.stride(0), v_sh=v8.stride(1), v_sl=v8.stride(2),
+        ks_sb=ks.stride(0), ks_sh=ks.stride(1), ks_sl=ks.stride(3),
+        vs_sb=vs.stride(0), vs_sh=vs.stride(1), vs_sl=vs.stride(3),
+        H=H, n_keys=n_keys, step=-1, causal=int(causal),
+        round_pv=int(round_pv),
+    )
+
+
+def _launch_int8(args: int, pairs: int, q: torch.Tensor, q_strides,
+                 fresh: tuple, bias: int, step: int, stream: int) -> None:
+    """One launch on a packed argument block (its address): the pointers
+    of q, the fresh rows (k, v, k scale, v scale) and the bias window."""
+    _build.check(_build.load().m2m_decode_attention_int8(
+        args, pairs, q.data_ptr(), q_strides[0], q_strides[1], *fresh, bias,
+        step, stream), "m2m_decode_attention_int8")
+    decode_attention_int8.launches += 1
 
 
 @torch.no_grad()
@@ -290,48 +363,21 @@ def decode_attention_int8(
     operands' strides: keys 0..step (causal; key ``step`` from the fresh
     row) or 0..enc_len-1 (cross), so a caller may pass a whole
     ``max_length`` cache buffer.  ``bias`` is indexed by key position
-    (``bias[h, j]`` for key j) and may be a strided view."""
+    (``bias[h, j]`` for key j) and may be a strided view.  Every call
+    checks and packs all of its operands; the decode loop calls the kernel
+    through an ``Int8AttentionPlan``, which does that once a generation."""
     if q.device.type != "cuda":
         return decode_attention_int8_plain(q, k_entry, v_entry, bias, step,
                                            new_k, new_v, causal, enc_len,
                                            round_pv)
-    k8, ks = k_entry
-    v8, vs = v_entry
-    B, H, L, D = k8.shape
-    if D != HEAD_DIM:
-        raise ValueError(f"decode attention kernel needs d_kv {HEAD_DIM}, "
-                         f"got {D}")
-    if causal:
-        step = int(step)
-        if not 0 <= step < L:
-            raise ValueError(f"step {step} outside the cache length {L}")
-        n_keys = step + 1
-    else:
-        n_keys = L if enc_len <= 0 else int(enc_len)
-        if n_keys > L:
-            raise ValueError(f"enc_len {n_keys} > cache length {L}")
-    if n_keys > MAX_KEYS:
-        raise ValueError(f"decode attention kernel takes at most {MAX_KEYS} "
-                         f"visible keys, got {n_keys}")
-    _check_int8("k", k8, 4)
-    _check_int8("v", v8, 4)
-    if tuple(v8.shape) != (B, H, L, D):
-        raise ValueError(f"v: needs {(B, H, L, D)}, got {tuple(v8.shape)}")
-    _check_f32("k scales", ks, (B, H, 1, L))
-    _check_f32("v scales", vs, (B, H, 1, L))
-    qb = _query(q, B, H, D)
+    B, H, L, D = k_entry[0].shape
+    _check_head_dim(D)
+    n_keys = _visible_keys(causal, step, enc_len, L)
     out = torch.empty((B, H, 1, D), dtype=torch.bfloat16, device=q.device)
-    a = _Int8Args(
-        q=qb.data_ptr(), k=k8.data_ptr(), v=v8.data_ptr(),
-        ks=ks.data_ptr(), vs=vs.data_ptr(), out=out.data_ptr(),
-        q_sb=qb.stride(0), q_sh=qb.stride(1),
-        k_sb=k8.stride(0), k_sh=k8.stride(1), k_sl=k8.stride(2),
-        v_sb=v8.stride(0), v_sh=v8.stride(1), v_sl=v8.stride(2),
-        ks_sb=ks.stride(0), ks_sh=ks.stride(1), ks_sl=ks.stride(3),
-        vs_sb=vs.stride(0), vs_sh=vs.stride(1), vs_sl=vs.stride(3),
-        H=H, n_keys=n_keys, step=step if causal else -1, causal=int(causal),
-        round_pv=int(round_pv),
-    )
+    a = _pack_int8(k_entry, v_entry, n_keys, causal, round_pv, out)
+    qb = _query(q, B, H, D)
+    _on_card(qb, out)
+    fresh, bias_ptr = (0, 0, 0, 0), 0
     if causal:
         b2 = _bias_2d(bias)
         if b2.dtype != torch.float32:
@@ -348,27 +394,159 @@ def decode_attention_int8(
                                  f"{tuple(t.shape)}")
         _check_f32("new k scale", kns, (B, H, 1, 1))
         _check_f32("new v scale", vns, (B, H, 1, 1))
-        _on_card(q, k8, v8, ks, vs, b2, kn8, vn8, kns, vns)
-        a.bias, a.bias_sh, a.bias_sl = b2.data_ptr(), b2.stride(0), \
-            b2.stride(1)
-        a.kn, a.kn_sb, a.kn_sh = kn8.data_ptr(), kn8.stride(0), kn8.stride(1)
-        a.vn, a.vn_sb, a.vn_sh = vn8.data_ptr(), vn8.stride(0), vn8.stride(1)
-        a.kns, a.kns_sb, a.kns_sh = kns.data_ptr(), kns.stride(0), \
-            kns.stride(1)
-        a.vns, a.vns_sb, a.vns_sh = vns.data_ptr(), vns.stride(0), \
-            vns.stride(1)
-    else:
-        _on_card(q, k8, v8, ks, vs)
+        _on_card(q, b2, kn8, vn8, kns, vns)
+        a.bias_sh, a.bias_sl = b2.stride()
+        a.kn_sb, a.kn_sh = kn8.stride()[:2]
+        a.vn_sb, a.vn_sh = vn8.stride()[:2]
+        a.kns_sb, a.kns_sh = kns.stride()[:2]
+        a.vns_sb, a.vns_sh = vns.stride()[:2]
+        fresh = (kn8.data_ptr(), vn8.data_ptr(), kns.data_ptr(),
+                 vns.data_ptr())
+        bias_ptr = b2.data_ptr()
     if B * H:
-        lib = _build.load()
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        _build.check(lib.m2m_decode_attention_int8(
-            ctypes.addressof(a), B * H, stream), "m2m_decode_attention_int8")
-        decode_attention_int8.launches += 1
+        _launch_int8(ctypes.addressof(a), B * H, qb, qb.stride(), fresh,
+                     bias_ptr, n_keys - 1, torch.cuda.current_stream(
+                         q.device).cuda_stream)
     return out.to(q.dtype)
 
 
 decode_attention_int8.launches = 0
+
+
+class Int8AttentionPlan:
+    """``decode_attention_int8`` over one generation's int8 caches, with
+    what is fixed for the generation checked and packed once: each
+    layer's self cache and cross-KV buffers (base pointers, strides, scale
+    rows), the bias table, B, H and ``round_pv``.
+
+    ``decode_step`` calls ``causal(i, q, new_k, new_v, step)`` for layer
+    i's self block (keys 0..step, key ``step`` from the fresh rows, the
+    bias window ``bias_rows[:, L - step - 1:]``) and ``cross(i, q)`` for
+    its cross block (keys < ``enc_len``).  On the card a call checks only
+    what moves (q: (B, H, 1, D) bf16 with 16-byte aligned rows; the fresh
+    rows: contiguous, as ``_quantize_kv`` makes them; the step), and makes
+    one C call that sets q, the fresh rows, the bias window and the step
+    on the packed argument block and launches on the current stream.  The
+    output goes to a buffer of the plan's, one per (layer, block), valid
+    until that block is called again: the decode loop consumes it at
+    once.  Nothing is read back and nothing allocated per call, so a CUDA
+    graph could capture the calls.  On CPU tensors a call runs the plain
+    version over the views that ``decode_attention_int8`` would be given
+    (the cache's first step + 1 keys, the bias window), so the two agree
+    bit for bit.  Launches count in ``decode_attention_int8.launches``."""
+
+    def __init__(self, self_cache: list, bias_rows: torch.Tensor,
+                 cross_layers: Optional[list] = None, enc_len: int = 0,
+                 round_pv: bool = True):
+        k8 = self_cache[0][0][0]
+        B, H, L, D = k8.shape
+        if L > MAX_KEYS:
+            raise ValueError(f"decode attention kernel takes at most "
+                             f"{MAX_KEYS} visible keys, the cache holds {L}")
+        if bias_rows.dtype not in _BIAS_DTYPES or \
+                tuple(bias_rows.shape) != (H, L):
+            raise ValueError(f"bias rows: needs float32 or bfloat16 {(H, L)}, "
+                             f"got {bias_rows.dtype} {tuple(bias_rows.shape)}")
+        # once a generation: float32 (exact from bf16), and contiguous, so
+        # that the kernel's copies of a window's values are coalesced (the
+        # engine's rows are a transposed view, keys 8 floats apart)
+        bias_rows = bias_rows.float().contiguous()
+        self.device, self.length, self.round_pv = k8.device, L, round_pv
+        self._self, self._cross = list(self_cache), list(cross_layers or [])
+        self._bias_rows = bias_rows
+        self._q_shape = (B, H, 1, D)
+        row, scale = (self._q_shape, torch.int8), ((B, H, 1, 1), torch.float32)
+        self._fresh = (row, row, scale, scale)  # k, v, k scale, v scale
+        self.enc_len, Lc = 0, 0
+        if self._cross:
+            Lc = self._cross[0][0][0].shape[2]
+            self.enc_len = _visible_keys(False, None, enc_len, Lc)
+
+        def pack(layers, causal, n_keys, shape):
+            outs = [torch.empty(self._q_shape, dtype=torch.bfloat16,
+                                device=self.device) for _ in layers]
+            args = [_pack_int8(k, v, n_keys, causal, round_pv, o)
+                    for (k, v), o in zip(layers, outs)]
+            for a, (k, v) in zip(args, layers):
+                if tuple(k[0].shape) != shape:
+                    raise ValueError(f"every layer's cache needs {shape}, "
+                                     f"got {tuple(k[0].shape)}")
+                if causal:  # the fresh rows' layout, checked per call
+                    a.kn_sb, a.kn_sh, a.kns_sb, a.kns_sh = H * D, D, H, 1
+                    a.vn_sb, a.vn_sh, a.vns_sb, a.vns_sh = H * D, D, H, 1
+                    a.bias_sh, a.bias_sl = bias_rows.stride()
+            return outs, args
+
+        self._self_out, self._self_args = pack(self._self, True, 1,
+                                               (B, H, L, D))
+        self._cross_out, self._cross_args = pack(self._cross, False,
+                                                 self.enc_len, (B, H, Lc, D))
+        _on_card(k8, bias_rows)
+        self._pairs = B * H
+        if self.device.type == "cuda":
+            _check_head_dim(D)
+            self._index = self.device.index if self.device.index is not None \
+                else torch.cuda.current_device()
+            self._addr = {"self": [ctypes.addressof(a)
+                                   for a in self._self_args],
+                          "cross": [ctypes.addressof(a)
+                                    for a in self._cross_args]}
+            # the bias window of step s starts L - s - 1 columns in
+            self._bias_end = bias_rows.data_ptr() + 4 * L * bias_rows.stride(1)
+            self._bias_col = 4 * bias_rows.stride(1)
+            # the current stream's handle, read on every call (a capture
+            # or a caller's stream context changes it); cheaper than
+            # torch.cuda.current_stream, which builds a Stream object
+            self._stream = torch._C._cuda_getCurrentRawStream
+            _build.load()
+
+    def _q_strides(self, q: torch.Tensor):
+        sq = q.stride()
+        if q.shape != self._q_shape or q.dtype != torch.bfloat16 or \
+                not _q_aligned(q, sq) or q.get_device() != self._index:
+            raise ValueError(f"q: needs bfloat16 {self._q_shape} with "
+                             f"16-byte aligned rows on {self.device}, got "
+                             f"{q.dtype} {tuple(q.shape)} {sq} on {q.device}")
+        return sq
+
+    def causal(self, i: int, q: torch.Tensor, new_k: Entry, new_v: Entry,
+               step: int) -> torch.Tensor:
+        """Layer i's self block at ``step`` -> (B, H, 1, D) bf16."""
+        if not 0 <= step < self.length:
+            raise ValueError(f"step {step} outside the cache length "
+                             f"{self.length}")
+        if self.device.type != "cuda":
+            n = step + 1
+            (k8, ks), (v8, vs) = self._self[i]
+            return decode_attention_int8_plain(
+                q, (k8[:, :, :n], ks[..., :n]), (v8[:, :, :n], vs[..., :n]),
+                self._bias_rows[:, self.length - n:], step, new_k, new_v,
+                True, 0, self.round_pv)
+        sq = self._q_strides(q)
+        fresh = (new_k[0], new_v[0], new_k[1], new_v[1])
+        ptrs = tuple(t.data_ptr() for t in fresh)
+        for t, want, ptr in zip(fresh, self._fresh, ptrs):
+            if (t.shape, t.dtype) != want or not t.is_contiguous() or \
+                    ptr % 16 or t.get_device() != self._index:
+                raise ValueError(f"fresh row: needs a contiguous, 16-byte "
+                                 f"aligned {want} on {self.device}, got "
+                                 f"{t.dtype} {tuple(t.shape)} {t.stride()}")
+        _launch_int8(self._addr["self"][i], self._pairs, q, sq, ptrs,
+                     self._bias_end - (step + 1) * self._bias_col, step,
+                     self._stream(self._index))
+        return self._self_out[i]
+
+    def cross(self, i: int, q: torch.Tensor) -> torch.Tensor:
+        """Layer i's cross block -> (B, H, 1, D) bf16."""
+        if self.device.type != "cuda":
+            k, v = self._cross[i]
+            return decode_attention_int8_plain(q, k, v, None, None, None,
+                                               None, False, self.enc_len,
+                                               self.round_pv)
+        _launch_int8(self._addr["cross"][i], self._pairs, q,
+                     self._q_strides(q), (0, 0, 0, 0), 0, -1,
+                     self._stream(self._index))
+        return self._cross_out[i]
 
 
 @torch.no_grad()
@@ -389,9 +567,7 @@ def decode_attention_cross_t(
     kt8, ks = kt_entry
     vt8, vs = vt_entry
     B, H, D, L = kt8.shape
-    if D != HEAD_DIM:
-        raise ValueError(f"decode attention kernel needs d_kv {HEAD_DIM}, "
-                         f"got {D}")
+    _check_head_dim(D)
     n_keys = L if enc_len <= 0 else int(enc_len)
     if n_keys > L:
         raise ValueError(f"enc_len {n_keys} > cache length {L}")

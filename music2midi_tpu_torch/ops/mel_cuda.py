@@ -42,13 +42,28 @@ from .mel import (
     num_frames,
 )
 
-_MAX_N_FFT = 4096  # shared memory: 20 * n_fft / 2 bytes, under 48 KB
+_SMEM_LIMIT = 232448  # bytes of shared memory a block can use (H100)
+_MAX_N_FFT = 4096  # the largest of csrc/mel_fft.cu's instances
+_FFT_FRAMES = 8  # frames a CTA of csrc/mel_fft.cu
+
+
+def fft_smem_bytes(cfg: LogMelConfig) -> int:
+    """Shared memory of one CTA of ``csrc/mel_fft.cu`` (its
+    ``mel_fft_smem_floats``): the twiddles (n_fft / 2 and R1 x 32
+    complex, R1 = n_fft / 64), the window, the samples of 8 frames and an
+    R1 x 33 complex buffer a frame."""
+    n_fft = cfg.n_fft
+    r1 = n_fft // 64
+    span = -(-((_FFT_FRAMES - 1) * cfg.hop_length + n_fft) // 4) * 4
+    return 4 * (n_fft + 2 * r1 * 32 + n_fft + span
+                + _FFT_FRAMES * 2 * r1 * 33)
 
 
 def check_shape(n_samples: int, cfg: LogMelConfig) -> None:
     """The TPU kernel's guard (256 | n_fft, 128 | hop) plus this kernel's
-    own: a power-of-two n_fft up to 4096, and a wave longer than the
-    reflect pad."""
+    own: a power-of-two n_fft up to 4096 (one instance of the kernel
+    each), a tile of 8 frames that fits in shared memory, and a wave
+    longer than the reflect pad."""
     n_fft, hop = cfg.n_fft, cfg.hop_length
     if n_fft % 256 != 0 or hop % 128 != 0:
         raise ValueError("mel kernel requires 256 | n_fft and 128 | hop")
@@ -56,6 +71,10 @@ def check_shape(n_samples: int, cfg: LogMelConfig) -> None:
         raise ValueError(
             f"mel kernel requires a power-of-two n_fft <= {_MAX_N_FFT}"
         )
+    if fft_smem_bytes(cfg) > _SMEM_LIMIT:
+        raise ValueError(f"mel kernel: 8 frames at hop {hop} need "
+                         f"{fft_smem_bytes(cfg)} bytes of shared memory, "
+                         f"over {_SMEM_LIMIT}")
     if n_samples <= n_fft // 2:
         raise ValueError(
             f"reflect pad of {n_fft // 2} needs more than {n_samples} samples"
@@ -93,6 +112,19 @@ def _tables(cfg: LogMelConfig, device: torch.device) -> tuple:
             dev(wts))
 
 
+@functools.lru_cache(maxsize=8)
+def _fft_twiddles(cfg: LogMelConfig, device: torch.device) -> torch.Tensor:
+    """(R1, 32, 2) float32 on the device, R1 = n_fft / 64: [k1][m2] the
+    (cos, sin) of 2 pi m2 k1 / (n_fft / 2), the twiddles between the two
+    passes (R1 and 32 points) of the kernel's n_fft / 2 point FFT, from
+    float64 (the angle reduced modulo the period first)."""
+    k1, m2 = np.meshgrid(np.arange(cfg.n_fft // 64), np.arange(32),
+                         indexing="ij")
+    ang = 2.0 * np.pi * ((2 * m2 * k1) % cfg.n_fft) / cfg.n_fft
+    tw2 = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(tw2)).to(device)
+
+
 def mel_nnz(cfg: LogMelConfig) -> int:
     """Nonzero filterbank weights: the multiply-adds of the mel step."""
     return int(np.count_nonzero(filterbank_for(cfg)))
@@ -119,11 +151,13 @@ def log_mel_spectrogram_cuda(
     if B == 0:
         return out
     hann, tw, lo, hi, off, wts = _tables(cfg, wave.device)
+    tw2 = _fft_twiddles(cfg, wave.device)
     lib = _build.load()
     stream = torch.cuda.current_stream(wave.device).cuda_stream
     status = lib.m2m_log_mel_fft(
         wave.data_ptr(), out.data_ptr(), hann.data_ptr(), tw.data_ptr(),
-        lo.data_ptr(), hi.data_ptr(), off.data_ptr(), wts.data_ptr(),
+        tw2.data_ptr(), lo.data_ptr(), hi.data_ptr(), off.data_ptr(),
+        wts.data_ptr(),
         B, S, F, cfg.n_fft, cfg.hop_length, cfg.n_mels,
         float(cfg.log_floor), stream,
     )
@@ -133,9 +167,6 @@ def log_mel_spectrogram_cuda(
 
 
 log_mel_spectrogram_cuda.launches = 0
-
-
-_DFT_SMEM_LIMIT = 232448  # bytes of shared memory a block can use (H100)
 
 
 def dft_smem_bytes(cfg: LogMelConfig) -> int:
@@ -163,10 +194,10 @@ def check_shape_dft(n_samples: int, cfg: LogMelConfig) -> None:
     if n_fft & (n_fft - 1) or not 256 <= n_fft <= 2048:
         raise ValueError("direct-DFT mel kernel requires a power-of-two "
                          "n_fft from 256 to 2048")
-    if dft_smem_bytes(cfg) > _DFT_SMEM_LIMIT:
+    if dft_smem_bytes(cfg) > _SMEM_LIMIT:
         raise ValueError(f"direct-DFT mel kernel: a 64-frame tile at hop "
                          f"{hop} needs {dft_smem_bytes(cfg)} bytes of shared "
-                         f"memory, over {_DFT_SMEM_LIMIT}")
+                         f"memory, over {_SMEM_LIMIT}")
     if n_samples <= n_fft // 2:
         raise ValueError(
             f"reflect pad of {n_fft // 2} needs more than {n_samples} samples"

@@ -14,7 +14,8 @@ round as its source reads.  Bars:
   * the JAX package's bars against JAX ``_attention_int8`` (0.05 for the
     int8 kernel, 0.08 for the transposed-cross kernel) hold for the plain
     versions too;
-  * ``decode_step`` through each new route, teacher-forced in bf16: logits
+  * ``decode_step`` through each kernel route (an int8 launch plan, a
+    transposed cross-KV), teacher-forced in bf16: logits
     within 0.0625 of JAX ``decode_step(use_pallas=True)``, argmax equal
     wherever JAX's top-2 gap exceeds 0.125 (as ``test_torch_decode.py``);
   * ``generate_tokens`` with ``pallas_cross`` against JAX
@@ -440,6 +441,7 @@ def _teacher_forced(model, route, tokens, max_len, jax_pallas=True):
     jdp = jt5.prepare_decode_params(tree, jcfg)
     dp = pt5.prepare_decode_params(net, pcfg)
     rows = pt5.decoder_bias_rows(dp["rel_bias"], max_len, pcfg)
+    plan = pt5.int8_attention_plan(pcache, pcross, rows)
     before = (pda.decode_attention_int8.launches,
               pda.decode_attention_cross_t.launches)
     for step in range(tokens.shape[1]):
@@ -448,7 +450,7 @@ def _teacher_forced(model, route, tokens, max_len, jax_pallas=True):
                                      jcache, jcross, jcfg, max_len,
                                      use_pallas=jax_pallas)
         lp = pt5.decode_step(dp, torch.from_numpy(tok).long(), step, pcache,
-                             pcross, pcfg, rows, use_pallas=True)
+                             pcross, pcfg, rows, plan)
         _check_logits(lp.float().numpy(), np.asarray(lj).astype(np.float32))
     # the CPU route takes the plain versions and launches no kernel
     assert (pda.decode_attention_int8.launches,
@@ -538,3 +540,104 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     assert pda.decode_attention_int8(
         q, (k, torch.ones(2, 2, 1, 8)), (k, torch.ones(2, 2, 1, 8)), None,
         None, None, None, causal=False).shape == (2, 2, 1, 16)
+
+
+# --------------------------------------------------------------------- #
+# the int8 kernel's launch plan                                          #
+# --------------------------------------------------------------------- #
+
+
+def _plan_inputs(B=2, H=2, L=8, D=16):
+    """An int8 self cache of one layer as ``init_kv_cache`` lays it out,
+    (H, L) f32 bias rows, and one step's bf16 query and fresh rows."""
+    rng = np.random.default_rng(8)
+    entry = pt5._quantize_kv(torch.from_numpy(_normals(rng, B, H, L, D)))
+    cache = [(entry, pt5._quantize_kv(torch.from_numpy(
+        _normals(rng, B, H, L, D))))]
+    rows = torch.from_numpy(_normals(rng, H, L))
+    q = torch.from_numpy(_normals(rng, B, H, 1, D)).to(torch.bfloat16)
+    kn = pt5._quantize_kv(torch.from_numpy(_normals(rng, B, H, 1, D)))
+    vn = pt5._quantize_kv(torch.from_numpy(_normals(rng, B, H, 1, D)))
+    return cache, rows, q, kn, vn
+
+
+def test_plan_checks_what_it_packs():
+    """Building a plan checks every buffer it packs, and a call its step,
+    before any CUDA call: a row stride that is no multiple of 16 bytes, a
+    base off 16-byte alignment, the wrong dtype of values, scales or bias
+    rows, the wrong bias shape, an enc_len past the cross-KV, a layer
+    whose cache differs from the first's, and a step outside the cache
+    raise."""
+    cache, rows, q, kn, vn = _plan_inputs()
+    (k8, ks), v = cache[0]
+    plan = pda.Int8AttentionPlan(cache, rows)
+    assert plan.causal(0, q, kn, vn, 7).shape == (2, 2, 1, 16)
+    wide = torch.zeros(2, 2, 8, 24, dtype=torch.int8)
+    shifted = torch.zeros(2 * 2 * 8 * 16 + 1, dtype=torch.int8)[1:].view(
+        2, 2, 8, 16)
+    for bad, match in (
+            ([((wide[..., :16], ks), v)], "16-byte"),
+            ([((shifted, ks), v)], "16-byte"),
+            ([((k8.float(), ks), v)], "int8"),
+            ([((k8, ks.double()), v)], "float32"),
+            ([((k8, ks[..., :7]), v)], "float32")):
+        with pytest.raises(ValueError, match=match):
+            pda.Int8AttentionPlan(bad, rows)
+    with pytest.raises(ValueError, match="bias rows"):
+        pda.Int8AttentionPlan(cache, rows.double())
+    with pytest.raises(ValueError, match="bias rows"):
+        pda.Int8AttentionPlan(cache, rows[:, :7])
+    with pytest.raises(ValueError, match="enc_len"):
+        pda.Int8AttentionPlan(cache, rows, cache, enc_len=9)
+    with pytest.raises(ValueError, match="every layer"):
+        pda.Int8AttentionPlan(cache + [((k8[:1], ks[:1]), (k8[:1], ks[:1]))],
+                              rows)
+    for step in (-1, 8):
+        with pytest.raises(ValueError, match="outside the cache"):
+            plan.causal(0, q, kn, vn, step)
+
+
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", ["int8", "cross_t"])
+def test_plan_route_equals_public_route(model, route, bias_dtype):
+    """``decode_step`` teacher-forced in bf16 + int8 KV through the launch
+    plan, and after every step, 0, mid and last among them, each layer's
+    plan calls against ``decode_attention_int8`` over views of the same
+    caches (the written prefix, the bias window ``rows[:, L - n:]``, the
+    step's rows as written): equal bit for bit (on the CPU both run the
+    plain version), with f32 bias rows and the bf16 ones of a bf16
+    checkpoint.  Over a transposed cross-KV the plan holds the self cache
+    alone."""
+    tree, net, pcfg, enc = model
+    max_len = 16
+    rng = np.random.default_rng(9)
+    tokens = torch.from_numpy(rng.integers(3, 400, size=(8, max_len)))
+    x = torch.from_numpy(enc).to(torch.bfloat16)
+    cross = pt5.precompute_cross_kv(net, x, pcfg, quantize=True)
+    if route == "cross_t":
+        cross = pt5.transpose_cross_kv(cross)
+    dp = pt5.prepare_decode_params(net, pcfg)
+    rows = pt5.decoder_bias_rows(dp["rel_bias"], max_len, pcfg).to(bias_dtype)
+    cache = pt5.init_kv_cache(8, max_len, pcfg, quantize=True)
+    plan = pt5.int8_attention_plan(cache, cross, rows)
+    q = torch.from_numpy(_normals(rng, 8, 4, 1, 16)).to(torch.bfloat16)
+    for step in range(max_len):
+        pt5.decode_step(dp, tokens[:, step], step, cache, cross, pcfg, rows,
+                        plan)
+        n = step + 1
+        for i, entries in enumerate(cache):
+            (k8, ks), (v8, vs) = entries
+            public = pda.decode_attention_int8(
+                q, (k8[:, :, :n], ks[..., :n]), (v8[:, :, :n], vs[..., :n]),
+                rows[:, max_len - n:], step,
+                (k8[:, :, step:n], ks[..., step:n]),
+                (v8[:, :, step:n], vs[..., step:n]), causal=True,
+                round_pv=True)
+            planned = plan.causal(i, q, (k8[:, :, step:n], ks[..., step:n]),
+                                  (v8[:, :, step:n], vs[..., step:n]), step)
+            assert torch.equal(public, planned), (step, i)
+    for i, (ck, cv) in enumerate(cross.layers if route == "int8" else ()):
+        public = pda.decode_attention_int8(
+            q, ck, cv, None, None, None, None, causal=False,
+            enc_len=cross.enc_len, round_pv=True)
+        assert torch.equal(public, plan.cross(i, q)), i

@@ -5,6 +5,7 @@ with one (whose Python may lack jax, which ``tests/conftest.py``
 imports): ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
 """
 
+import itertools
 import math
 from pathlib import Path
 
@@ -167,3 +168,124 @@ def test_serving_path_launches_the_kernel(card, pallas_cross):
     assert cross_t == (6 * steps if pallas_cross else 0)
     ok, detail = check_midi(midi)
     assert ok, detail
+
+
+@pytest.mark.parametrize("round_pv", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 255, 256, 257, 512, 1023, 1024])
+def test_int8_causal_kernel_at_key_group_boundaries(card, n, round_pv):
+    """Keys 0..n-1 of a 1024-long cache at the edges of the kernel's key
+    groups (its 256 threads take 64 keys a load and 128 a group of two
+    loads in flight) and at the cache's end: 2e-2 against the plain
+    version, and junk bytes, scales and bias past the visible keys change
+    nothing."""
+    q, k, v, kn, vn, bias = _int8_inputs(card, 1024, n)
+    step = n - 1
+    got = da.decode_attention_int8(q, k, v, bias, step, kn, vn, causal=True,
+                                   round_pv=round_pv)
+    _close(got, da.decode_attention_int8_plain(q, k, v, bias, step, kn, vn,
+                                               causal=True,
+                                               round_pv=round_pv))
+    for t in (k[0], v[0]):
+        t[:, :, n:] = 127
+    for t in (k[1], v[1]):
+        t[..., n:] = 1e3
+    bias[..., n:] = 1e3
+    _close(da.decode_attention_int8(q, k, v, bias, step, kn, vn, causal=True,
+                                    round_pv=round_pv), got, 0.0)
+
+
+@pytest.mark.parametrize("round_pv", [False, True])
+@pytest.mark.parametrize("enc_len", [1, 150, 190])
+def test_int8_cross_kernel_on_the_engine_layout(card, enc_len, round_pv):
+    """The cross route on ``precompute_cross_kv``'s layout (keys 512 bytes
+    apart), keys past ``enc_len`` filled with junk."""
+    q, k, v = _cross_inputs(card, 190, enc_len + 7)
+    assert k[0].stride(2) == 8 * 64
+    for t in (k[0], v[0]):
+        t[:, :, enc_len:] = -127
+    for t in (k[1], v[1]):
+        t[..., enc_len:] = 1e3
+    args = (q, k, v, None, None, None, None, False, enc_len, round_pv)
+    _close(da.decode_attention_int8(*args),
+           da.decode_attention_int8_plain(*args))
+
+
+def test_plan_route_equals_public_function_on_card(card):
+    """The launch plan over a decode loop's caches (``init_kv_cache``'s
+    self buffers, ``precompute_cross_kv``'s cross layout, the engine's
+    bias rows) against ``decode_attention_int8`` on the same operands: the
+    same kernel, so equal bit for bit, at steps 0, 255, 256, 700 and 1023,
+    and one launch counted per call."""
+    from music2midi_tpu_torch.models.t5 import decoder_bias_rows, T5Config
+
+    B, H, D, L = 64, 8, 64, 1024
+    g = torch.Generator().manual_seed(11)
+    cache = []
+    for _ in range(2):
+        entries = [_quantize_kv(torch.randn(B, H, L, D, generator=g).to(card))
+                   for _ in range(2)]
+        cache.append(tuple(entries))
+    cross = [_cross_inputs(card, 190, 20 + i)[1:] for i in range(2)]
+    cfg = T5Config()
+    rel = torch.randn(cfg.relative_attention_num_buckets, H,
+                      generator=g).to(card)
+    rows = decoder_bias_rows(rel, L, cfg)
+    plan = da.Int8AttentionPlan(cache, rows, cross, enc_len=150)
+    qkv = torch.randn(B, 1, 3 * H * D, generator=g).to(card, torch.bfloat16)
+    q = _split_heads(qkv[..., :H * D], H, D)
+    kn = _quantize_kv(_split_heads(qkv[..., H * D:2 * H * D], H, D))
+    vn = _quantize_kv(_split_heads(qkv[..., 2 * H * D:], H, D))
+    for i, step in itertools.product(range(2), (0, 255, 256, 700, 1023)):
+        n = step + 1
+        (k8, ks), (v8, vs) = cache[i]
+        before = da.decode_attention_int8.launches
+        got = plan.causal(i, q, kn, vn, step).clone()
+        assert da.decode_attention_int8.launches == before + 1
+        _close(got, da.decode_attention_int8(
+            q, (k8[:, :, :n], ks[..., :n]), (v8[:, :, :n], vs[..., :n]),
+            rows[:, L - n:], step, kn, vn, causal=True, round_pv=True), 0.0)
+    for i in range(2):
+        _close(plan.cross(i, q).clone(), da.decode_attention_int8(
+            q, *cross[i], None, None, None, None, causal=False, enc_len=150,
+            round_pv=True), 0.0)
+
+
+@pytest.mark.parametrize("batch,n_samples,n_fft,hop", [
+    (64, 48000, 2048, 256), (1, 41234, 2048, 256), (128, 48000, 2048, 256),
+    (3, 33000, 2048, 256), (5, 40000, 256, 128), (5, 40000, 512, 128),
+    (5, 40000, 1024, 256), (5, 40000, 4096, 1024)])
+def test_fft_mel_kernel_tiles_of_frames(card, batch, n_samples, n_fft, hop):
+    """The FFT mel kernel at the serving batch, at the calibration length,
+    at twice the serving batch, and at 129 frames (a last tile of one
+    frame; 188 and 162 frames end in part-tiles too), and its other
+    instances (n_fft 256, 512, 1024 and 4096: 4, 8, 16 and 64 points a
+    lane in the first pass, where 2048 has 32), the last at the largest
+    hop whose tile fits in shared memory: noise rows within
+    1e-3 of the plain version in the log domain wherever the plain mel
+    power is ten times the log floor or more, and within 1e-2 below that
+    (near the floor d log P = dP / P magnifies fp32 round-off: among the
+    128-chunk draw's 9.2 M values, bins a few times the floor miss 1e-3),
+    silence on the log floor within 1e-4, the tone's argmax mel bin
+    equal."""
+    cfg = LogMelConfig(n_fft=n_fft, hop_length=hop)
+    rng = np.random.default_rng(batch + n_samples)
+    w = (rng.normal(size=(batch, n_samples)) * 0.3).astype(np.float32)
+    t = np.arange(n_samples) / cfg.sample_rate
+    special = batch >= 3
+    if special:
+        w[1] = np.sin(2 * np.pi * 440 * t)
+        w[2] = 0.0
+    x = torch.from_numpy(w).to(card)
+    got = mel_cuda.log_mel_spectrogram_cuda(x, cfg)
+    torch.cuda.synchronize()
+    ref = log_mel_spectrogram(x, cfg)
+    assert got.shape == ref.shape
+    noise = [r for r in range(batch) if not special or r not in (1, 2)]
+    err = (got[noise] - ref[noise]).abs()
+    clear = ref[noise] >= math.log(10 * cfg.log_floor)
+    assert float(err[clear].max()) <= 1e-3
+    assert float(err.max()) <= 1e-2
+    if special:
+        assert float((got[2] - math.log(1e-6)).abs().max()) <= 1e-4
+        assert int(got[1].mean(0).argmax()) == int(ref[1].mean(0).argmax())
+
