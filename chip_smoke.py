@@ -36,7 +36,11 @@ and exits non-zero, and nothing is caught and passed over:
        inputs in turn, as the decode loop's six layers come: kernel 3 at
        causal n = 32, 128 and 1023 and cross L = 190, ``round_pv`` on and
        off, through the public function and through the launch plan, each
-       with its host-inclusive time beside sdpa's;
+       with its host-inclusive time beside sdpa's; then kernel 3's f32
+       instance (a float32 query and output, an fp32 engine with int8 KV)
+       at the same causal n and cross L, bar 1e-5 relative to the largest
+       output, f32 sdpa beside it; and kernel 3 on the +-7-level entries
+       of ``kv_bits=4`` (int8 storage), bar 2e-2 on the bf16 outputs;
   4. serving path: ``Music2MIDI.from_npz(model of record, bf16)`` on the
      card, ``generate(audio_path=...)`` on the calibration fixture, the
      pinned ``check_midi`` gate, and the launch counts of this run (the
@@ -55,7 +59,18 @@ and exits non-zero, and nothing is caught and passed over:
   8. batch serving: ``warmup([128])``, then ``generate_batch`` over four
      synthetic 3-minute songs, one warm-up (its kernel launches counted)
      and two timed runs;
-  9. the ``kernels`` JSON line.
+  9. engine options on the calibration fixture with the model of record,
+     each from a fresh engine: bf16 with ``int8_weights``, ``kv_bits=4``,
+     ``unroll=8`` (tokens equal to default serving's), sampling at
+     ``temperature=1.0, top_k=10`` twice with one ``sample_seed`` (equal
+     tokens), and fp32 with ``int8_kv=True`` (kernel 3's f32 instance);
+     each prints its notes, launch counts and greedy-token agreement with
+     default serving, and its decode stage time on the song's batch;
+  10. bench: ``music2midi_tpu_torch.bench``'s workload cut to 2 of its 8
+     songs, 1 group of 1 trial and 1 latency trial, then its secondary
+     forced-256 run on the same songs: songs/min, p50 latency, ``mfu``
+     (required non-null on an H100), ``mfu_executed``, tokens, notes;
+  11. the ``kernels`` JSON line.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -79,6 +94,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12  # H100 SXM, dense TF32 on the tensor cores
 ATTN_BAR = 2e-2  # decode-attention kernels vs plain, bf16 outputs
+F32_BAR = 1e-5  # kernel 3's f32 instance vs plain, relative to max |out|
 B_SERVE, HEADS, D_KV = 64, 8, 64  # the song's bucket; the model's heads
 SELF_LEN, ENC_LEN = 1024, 190  # decode_max_length; 188 frames + 2 cond
 N_LAYERS = 6  # decoder layers: timed inputs taken in turn
@@ -107,6 +123,17 @@ class Phase:
             print(f"[phase] {self.name}: ok in {dt:.3f} s {self.info}",
                   flush=True)
         return False
+
+
+def timed_s(fn) -> tuple:
+    """(fn's result, host seconds around it), ending in a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -219,12 +246,14 @@ def dft_algorithm_bound(B: int, S: int, cfg) -> tuple:
     return ops / TF32_FLOPS_PER_S * 1e3, ops
 
 
-def attention_bound(B: int, H: int, D: int, n: int, causal: bool) -> tuple:
+def attention_bound(B: int, H: int, D: int, n: int, causal: bool,
+                    q_bytes: int = 2) -> tuple:
     """Least time on the card for one decode-attention call over n visible
     keys: each input read once (n int8 K and V rows, key `step`'s from the
-    fresh row in the causal case, their f32 scales, the bias row, q) and
-    the output written once, vs 4 B H n D fp32 flops (q.k and p.v)."""
-    nbytes = 2 * B * H * n * (D + 4) + 2 * B * H * D * 2
+    fresh row in the causal case, their f32 scales, the bias row, q of
+    `q_bytes` an element) and the output (q's type) written once, vs
+    4 B H n D fp32 flops (q.k and p.v)."""
+    nbytes = 2 * B * H * n * (D + 4) + 2 * B * H * D * q_bytes
     if causal:
         nbytes += H * n * 4
     return _bound(nbytes, 4 * B * H * n * D)
@@ -253,10 +282,12 @@ def synthetic_song(seconds: float, sr: int, seed: int):
     return out / max(1e-6, float(np.abs(out).max())) * 0.8
 
 
-def int8_attention_inputs(L: int, causal: bool, n_sets: int) -> list:
+def int8_attention_inputs(L: int, causal: bool, n_sets: int,
+                          bits: int = 8) -> list:
     """`n_sets` seeded decode-attention inputs on the card at the serving
     widths, laid out as the decode loop lays them out: q bf16 (B, H, 1, D);
-    int8 K/V (B, H, L, D) through the port's ``_quantize_kv``, for the
+    int8 K/V (B, H, L, D) through the port's ``_quantize_kv`` at ``bits``
+    (+-127 or +-7 levels), for the
     causal kernel of a contiguous cache buffer (as ``init_kv_cache``) with
     the fresh int8 rows and a (1, H, 1, L) bias row, for the cross one of
     a ``_split_heads`` view of a bf16 (B, L, H*D) projection (as
@@ -265,7 +296,7 @@ def int8_attention_inputs(L: int, causal: bool, n_sets: int) -> list:
 
     from music2midi_tpu_torch.models.t5 import _quantize_kv, _split_heads
 
-    g = torch.Generator(device="cuda").manual_seed(L + int(causal))
+    g = torch.Generator(device="cuda").manual_seed(L + int(causal) + bits)
 
     def normal(*shape):
         return torch.randn(*shape, generator=g, device="cuda")
@@ -275,13 +306,14 @@ def int8_attention_inputs(L: int, causal: bool, n_sets: int) -> list:
     for _ in range(n_sets):
         one = [normal(B, H, 1, D).to(torch.bfloat16)]
         if causal:
-            one += [_quantize_kv(normal(B, H, L, D)),
-                    _quantize_kv(normal(B, H, L, D)),
-                    _quantize_kv(normal(B, H, 1, D)),
-                    _quantize_kv(normal(B, H, 1, D)), normal(1, H, 1, L)]
+            one += [_quantize_kv(normal(B, H, L, D), bits),
+                    _quantize_kv(normal(B, H, L, D), bits),
+                    _quantize_kv(normal(B, H, 1, D), bits),
+                    _quantize_kv(normal(B, H, 1, D), bits),
+                    normal(1, H, 1, L)]
         else:
             one += [_quantize_kv(_split_heads(
-                normal(B, L, H * D).to(torch.bfloat16), H, D))
+                normal(B, L, H * D).to(torch.bfloat16), H, D), bits)
                 for _ in range(2)]
             require(one[1][0].stride(2) == H * D,
                     "cross inputs not in the decode loop's layout")
@@ -289,13 +321,14 @@ def int8_attention_inputs(L: int, causal: bool, n_sets: int) -> list:
     return sets
 
 
-def dequantized(entry, n: int):
-    """The first n positions of an int8 (values, scales) entry as bf16."""
+def dequantized(entry, n: int, dtype=None):
+    """The first n positions of an int8 (values, scales) entry as `dtype`
+    (default bf16)."""
     import torch
 
     vals, scales = entry
     return (vals[:, :, :n].float() * scales[..., :n].transpose(-1, -2)).to(
-        torch.bfloat16).contiguous()
+        dtype or torch.bfloat16).contiguous()
 
 
 def rotating(calls: list):
@@ -317,11 +350,14 @@ def time_three(kernel_calls, plain_calls, library_calls, iters=200) -> tuple:
 
 def attention_phase(smi: str) -> tuple:
     """Check and time the two decode-attention kernels -> (int8 entry,
-    cross_t entry) of the kernels line, launches still to fill."""
+    cross_t entry) of the kernels line, launches still to fill (the int8
+    entry's ``f32_instance`` too)."""
     import torch
     import torch.nn.functional as F
 
     from music2midi_tpu_torch.ops import decode_attention as da
+
+    bf16, f32 = torch.bfloat16, torch.float32
 
     def check(got, ref, what) -> float:
         torch.cuda.synchronize()
@@ -333,56 +369,98 @@ def attention_phase(smi: str) -> tuple:
         require(err <= ATTN_BAR, f"{what}: kernel vs plain {err} > {ATTN_BAR}")
         return err
 
-    self_sets = int8_attention_inputs(SELF_LEN, True, N_LAYERS)
-    cross_sets = int8_attention_inputs(ENC_LEN, False, N_LAYERS)
+    def check_f32(got, ref, what) -> float:
+        """The f32 instance: max |diff| over max |plain| within F32_BAR."""
+        torch.cuda.synchronize()
+        require(got.shape == ref.shape and got.dtype == f32,
+                f"{what}: {got.shape} {got.dtype} vs {ref.shape}")
+        require(bool(torch.isfinite(got).all()),
+                f"{what}: non-finite kernel output")
+        err = float((got - ref).abs().max()) / float(ref.abs().max())
+        require(err <= F32_BAR, f"{what}: kernel vs plain {err} > {F32_BAR} "
+                                "relative")
+        return err
+
+    sets = {8: (int8_attention_inputs(SELF_LEN, True, N_LAYERS),
+                int8_attention_inputs(ENC_LEN, False, N_LAYERS)),
+            4: (int8_attention_inputs(SELF_LEN, True, N_LAYERS, bits=4),
+                int8_attention_inputs(ENC_LEN, False, N_LAYERS, bits=4))}
+    self_sets, cross_sets = sets[8]
+    # f32 queries for the f32 instance: the bf16 ones plus f32 detail
+    g = torch.Generator(device="cuda").manual_seed(32)
+    q32 = {id(one[0]): one[0].float() + 1e-2 * torch.randn(
+        one[0].shape, generator=g, device="cuda")
+        for bits in sets for group in sets[bits] for one in group}
     cross_t_sets = [(q, da.transpose_cross_entry(k),
                      da.transpose_cross_entry(v)) for q, k, v in cross_sets]
-    errs = {"int8": 0.0, "cross_t": 0.0}
+    errs = {"int8": 0.0, "cross_t": 0.0, "f32": 0.0}
+    for bits in (8, 4):
+        q, k, v, kn, vn, bias = sets[bits][0][0]
+        for step, rp in itertools.product((0, 63, 127, SELF_LEN - 2),
+                                          (False, True)):
+            errs["int8"] = max(errs["int8"], check(
+                da.decode_attention_int8(q, k, v, bias, step, kn, vn, True,
+                                         round_pv=rp),
+                da.decode_attention_int8_plain(q, k, v, bias, step, kn, vn,
+                                               True, round_pv=rp),
+                f"int8 causal {bits}-bit step {step} round_pv {rp}"))
     q, k, v, kn, vn, bias = self_sets[0]
-    for step, rp in itertools.product((0, 63, 127, SELF_LEN - 2),
-                                      (False, True)):
-        errs["int8"] = max(errs["int8"], check(
-            da.decode_attention_int8(q, k, v, bias, step, kn, vn, True,
-                                     round_pv=rp),
-            da.decode_attention_int8_plain(q, k, v, bias, step, kn, vn, True,
-                                           round_pv=rp),
-            f"int8 causal step {step} round_pv {rp}"))
+    for step in (31, 127, SELF_LEN - 2):
+        qf = q32[id(q)]
+        errs["f32"] = max(errs["f32"], check_f32(
+            da.decode_attention_int8(qf, k, v, bias, step, kn, vn, True,
+                                     round_pv=True),
+            da.decode_attention_int8_plain(qf, k, v, bias, step, kn, vn,
+                                           True, round_pv=True),
+            f"int8 causal f32 step {step}"))
     q, k, v = cross_sets[0]
     qt, kt, vt = cross_t_sets[0]
     require(kt[0].stride(2) == 192, "transposed cross rows not padded")
     for enc_len in (ENC_LEN, 150):
-        for rp in (False, True):
+        for rp, (q4, k4, v4) in itertools.product((False, True),
+                                                  (sets[8][1][0],
+                                                   sets[4][1][0])):
             errs["int8"] = max(errs["int8"], check(
-                da.decode_attention_int8(q, k, v, None, None, None, None,
+                da.decode_attention_int8(q4, k4, v4, None, None, None, None,
                                          False, enc_len, round_pv=rp),
-                da.decode_attention_int8_plain(q, k, v, None, None, None,
+                da.decode_attention_int8_plain(q4, k4, v4, None, None, None,
                                                None, False, enc_len,
                                                round_pv=rp),
                 f"int8 cross enc_len {enc_len} round_pv {rp}"))
+        qf = q32[id(q)]
+        errs["f32"] = max(errs["f32"], check_f32(
+            da.decode_attention_int8(qf, k, v, None, None, None, None, False,
+                                     enc_len, round_pv=True),
+            da.decode_attention_int8_plain(qf, k, v, None, None, None, None,
+                                           False, enc_len, round_pv=True),
+            f"int8 cross f32 enc_len {enc_len}"))
         errs["cross_t"] = max(errs["cross_t"], check(
             da.decode_attention_cross_t(qt, kt, vt, enc_len),
             da.decode_attention_cross_t_plain(qt, kt, vt, enc_len),
             f"cross_t enc_len {enc_len}"))
 
-    # the engine's bias rows (H, L): key j of step s at column L - s - 1 + j
-    rows = [bias[0, :, 0, :] for *_, bias in self_sets]
-
-    def plans(rp):
+    def plans(rp, bits=8, dtype=bf16):
         """One launch plan a decode layer, over its self cache, bias rows
         and cross-KV, as ``generate_tokens`` builds them."""
-        return [da.Int8AttentionPlan([(k, v)], r, [(ck, cv)], ENC_LEN,
-                                     round_pv=rp)
-                for (_, k, v, *_), r, (_, ck, cv) in zip(self_sets, rows,
-                                                         cross_sets)]
+        ss, cs = sets[bits]
+        return [da.Int8AttentionPlan([(k, v)], bias[0, :, 0, :], [(ck, cv)],
+                                     ENC_LEN, round_pv=rp, dtype=dtype)
+                for (_, k, v, _, _, bias), (_, ck, cv) in zip(ss, cs)]
 
-    def self_calls(step, rp):
+    def query(q, dtype):
+        return q if dtype == bf16 else q32[id(q)]
+
+    def self_calls(step, rp, bits=8, dtype=bf16):
         """The views the decode loop passes at `step`: the visible prefix
-        of the cache and the bias rows' window, no copies; and the same
-        call through each layer's launch plan."""
+        of the cache and the bias rows' window (the engine's bias rows
+        (H, L): key j of step s at column L - s - 1 + j), no copies; and
+        the same call through each layer's launch plan."""
         n = step + 1
         out = {"kernel": [], "plan": [], "plain": [], "library": []}
-        for (q, k, v, kn, vn, bias), r, plan in zip(self_sets, rows,
-                                                     plans(rp)):
+        for (q, k, v, kn, vn, bias), plan in zip(sets[bits][0],
+                                                 plans(rp, bits, dtype)):
+            q = query(q, dtype)
+            r = bias[0, :, 0, :]
             args = (q, (k[0][:, :, :n], k[1][..., :n]),
                     (v[0][:, :, :n], v[1][..., :n]), r[:, SELF_LEN - n:],
                     step, kn, vn, True, 0, rp)
@@ -391,18 +469,21 @@ def attention_phase(smi: str) -> tuple:
                 lambda p=plan, q=q, kn=kn, vn=vn: p.causal(0, q, kn, vn, step))
             out["plain"].append(
                 lambda a=args: da.decode_attention_int8_plain(*a))
-            kd, vd = dequantized(k, n), dequantized(v, n)
-            mask = r[None, :, None, SELF_LEN - n:].to(torch.bfloat16)
+            kd, vd = dequantized(k, n, dtype), dequantized(v, n, dtype)
+            # contiguous: sdpa's kernels fault on a mask view whose start
+            # is not 16-byte aligned (an f32 window at an odd column)
+            mask = r[None, :, None, SELF_LEN - n:].to(dtype).contiguous()
             out["library"].append(
                 lambda q=q, kd=kd, vd=vd, m=mask:
                 F.scaled_dot_product_attention(q, kd, vd, attn_mask=m,
                                                scale=1.0))
         return out
 
-    def cross_calls(transposed, rp=False):
+    def cross_calls(transposed, rp=False, bits=8, dtype=bf16):
         out = {"kernel": [], "plan": [], "plain": [], "library": []}
-        for (q, k, v), (_, kt, vt), plan in zip(cross_sets, cross_t_sets,
-                                                plans(rp)):
+        for (q, k, v), (_, kt, vt), plan in zip(sets[bits][1], cross_t_sets,
+                                                plans(rp, bits, dtype)):
+            q = query(q, dtype)
             if transposed:
                 args = (q, kt, vt, ENC_LEN)
                 out["kernel"].append(
@@ -416,23 +497,25 @@ def attention_phase(smi: str) -> tuple:
                 out["plan"].append(lambda p=plan, q=q: p.cross(0, q))
                 out["plain"].append(
                     lambda a=args: da.decode_attention_int8_plain(*a))
-            kd, vd = dequantized(k, ENC_LEN), dequantized(v, ENC_LEN)
+            kd = dequantized(k, ENC_LEN, dtype)
+            vd = dequantized(v, ENC_LEN, dtype)
             out["library"].append(
                 lambda q=q, kd=kd, vd=vd:
                 F.scaled_dot_product_attention(q, kd, vd, scale=1.0))
         return out
 
     # the launch plan runs the same kernel: equal bit for bit to the public
-    # function on the same operands
-    for calls in (self_calls(700, True), cross_calls(False, True)):
+    # function on the same operands, in both instances
+    for calls in (self_calls(700, True), cross_calls(False, True),
+                  self_calls(700, True, dtype=f32),
+                  cross_calls(False, True, dtype=f32)):
         got, want = calls["plan"][0]().clone(), calls["kernel"][0]()
         require(torch.equal(got, want), "launch plan vs decode_attention_int8")
 
     # kernel 3 with round_pv (the serving route's arithmetic) first; most
     # chunks end by step 110, so n = 32 is the common step
-    timings = {"int8": [], "cross_t": []}
-    for name, what, calls, n, causal in (
-            ("int8", "causal step 31 round_pv", self_calls(31, True), 32,
+    timings = {"int8": [], "cross_t": [], "f32": []}
+    rows = [("int8", "causal step 31 round_pv", self_calls(31, True), 32,
              True),
             ("int8", "causal step 127 round_pv", self_calls(127, True), 128,
              True),
@@ -445,14 +528,24 @@ def attention_phase(smi: str) -> tuple:
             ("int8", "causal step 1022", self_calls(SELF_LEN - 2, False),
              SELF_LEN - 1, True),
             ("int8", "cross L 190", cross_calls(False), ENC_LEN, False),
-            ("cross_t", "cross L 190", cross_calls(True), ENC_LEN, False)):
+            ("cross_t", "cross L 190", cross_calls(True), ENC_LEN, False)]
+    for n in (32, 128, SELF_LEN - 1):
+        rows.append(("f32", f"f32 causal step {n - 1}",
+                     self_calls(n - 1, True, dtype=f32), n, True))
+        rows.append(("int8", f"4-bit causal step {n - 1} round_pv",
+                     self_calls(n - 1, True, bits=4), n, True))
+    rows.append(("f32", "f32 cross L 190", cross_calls(False, True, dtype=f32),
+                 ENC_LEN, False))
+    rows.append(("int8", "4-bit cross L 190 round_pv",
+                 cross_calls(False, True, bits=4), ENC_LEN, False))
+    for name, what, calls, n, causal in rows:
         (ms, host_ms), (plain_ms, plain_host), (library_ms, lib_host) = \
             time_three(calls["kernel"], calls["plain"], calls["library"])
         plan_ms = plan_host = None
         if calls["plan"]:
             plan_ms, plan_host = device_ms(rotating(calls["plan"]), 200)
         bound_ms, bound_by, nbytes, ops = attention_bound(
-            B_SERVE, HEADS, D_KV, n, causal)
+            B_SERVE, HEADS, D_KV, n, causal, 4 if name == "f32" else 2)
         timings[name].append({
             "shape": f"{what}: B {B_SERVE}, H {HEADS}, D {D_KV}, {n} keys",
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -463,25 +556,36 @@ def attention_phase(smi: str) -> tuple:
         plan = ("" if plan_ms is None else
                 f" plan: device ms={plan_ms:.5f} host-inclusive ms="
                 f"{plan_host:.5f};")
+        lib = "f32" if name == "f32" else "bf16"
         print(f"  {name} {what}: device ms={ms:.5f} plain_ms={plain_ms:.5f} "
-              f"library_ms(sdpa, bf16 K/V)={library_ms:.5f} "
+              f"library_ms(sdpa, {lib} K/V)={library_ms:.5f} "
               f"bound_ms={bound_ms:.5f} ({bound_by}; {nbytes} B, {ops} flop)"
               f";{plan} host-inclusive ms: public function={host_ms:.5f} "
               f"plain={plain_host:.5f} library={lib_host:.5f} [{smi}]",
               flush=True)
 
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
     def entry(name, source, replaces, head):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": 0,
-                "max_abs_err": errs[name], **{
-                    k: head[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")},
+                "max_abs_err": errs[name], **{k: head[k] for k in keys},
                 "shape": head["shape"], "timings": timings[name]}
 
     head = next(t for t in timings["int8"]
                 if t["shape"].startswith("causal step 1022 round_pv"))
-    return (entry("int8", "music2midi_tpu_torch/csrc/decode_attention.cu",
-                  "music2midi_tpu/ops/decode_attention.py:155", head),
+    f32_head = next(t for t in timings["f32"]
+                    if t["shape"].startswith("f32 causal step 1022"))
+    int8 = entry("int8", "music2midi_tpu_torch/csrc/decode_attention.cu",
+                 "music2midi_tpu/ops/decode_attention.py:155", head)
+    int8["timings"] += timings["f32"]
+    # the f32 query instance (an fp32 engine with int8 KV): its launches
+    # are those of that engine's run in engine_options
+    int8["f32_instance"] = {"launches": 0, "max_rel_err": errs["f32"],
+                            **{k: f32_head[k] for k in keys},
+                            "plan_host_ms": f32_head["plan_host_ms"],
+                            "shape": f32_head["shape"]}
+    return (int8,
             entry("cross_t", "music2midi_tpu_torch/csrc/decode_attention.cu",
                   "music2midi_tpu/ops/decode_attention.py:288",
                   timings["cross_t"][0]))
@@ -506,6 +610,7 @@ def main() -> int:
     import numpy as np
 
     from music2midi_tpu_torch.audio import resample, write_wav
+    from music2midi_tpu_torch.bench import card_name_and_power_limit
     from music2midi_tpu_torch.calibration import check_midi, render_fixture
     from music2midi_tpu_torch.infer import Music2MIDI
     from music2midi_tpu_torch.infer.decode import generate_tokens
@@ -532,11 +637,7 @@ def main() -> int:
     with Phase("environment") as ph:
         kind = torch.cuda.get_device_name(0)
         count = torch.cuda.device_count()
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, check=True,
-        ).stdout.strip().splitlines()[0]
+        smi = card_name_and_power_limit()
         nvcc_ver = subprocess.run(
             [_build.find_nvcc(), "--version"], capture_output=True,
             text=True, check=True,
@@ -810,6 +911,103 @@ def main() -> int:
                    f"last_decode_stats={bstats} "
                    f"song0_vs_generate: notes {len(batched)} vs "
                    f"{len(single)}, equal {len(batched & single)} [{smi}]")
+
+    with Phase("engine_options") as ph:
+        # each option from a fresh engine on the fixture: tokens (launches
+        # counted), notes, agreement with default serving; then its decode
+        # stage on the song's batch
+        fixture16 = resample(fixture, fixture_sr, 16000)
+        chunks = engine._chunk_waveform(fixture16)
+        base = engine.sample_tokens_batched(chunks)
+
+        def agreement(toks) -> tuple:
+            same = total = 0
+            for a, b in zip(toks, base):
+                n_tok = max(len(a), len(b))
+                pa, pb = np.zeros(n_tok, np.int64), np.zeros(n_tok, np.int64)
+                pa[:len(a)], pb[:len(b)] = a, b
+                same += int((pa == pb).sum())
+                total += n_tok
+            return same, total
+
+        infos = []
+        for label, dtype, knobs in (
+                ("int8_weights", torch.bfloat16, {"int8_weights": True}),
+                ("kv_bits=4", torch.bfloat16, {"kv_bits": 4}),
+                ("unroll=8", torch.bfloat16, {"unroll": 8}),
+                ("sampling temperature=1.0 top_k=10 seed=5", torch.bfloat16,
+                 {"temperature": 1.0, "top_k": 10, "sample_seed": 5}),
+                ("fp32 int8_kv", torch.float32, {"int8_kv": True})):
+            eng = Music2MIDI.from_npz(RECORD, dtype=dtype)
+            for k, val in knobs.items():
+                setattr(eng, k, val)
+            toks, n = launches_of(lambda: eng.sample_tokens_batched(chunks))
+            steps = eng.last_decode_stats[0]["steps"]
+            run = min(-(-steps // eng.unroll) * eng.unroll,
+                      eng.decode_max_length - 1)
+            require(n["decode_attention_int8"] == 12 * run,
+                    f"{label}: {n['decode_attention_int8']} int8 kernel "
+                    f"launches for {run} decode steps")
+            if label == "unroll=8":
+                require(all(np.array_equal(a, b) for a, b in zip(toks, base)),
+                        "unroll=8 tokens differ from unroll=1's")
+            if label.startswith("sampling"):
+                again = eng.sample_tokens_batched(chunks)
+                require(all(np.array_equal(a, b) for a, b in zip(toks, again)),
+                        "one sample_seed gave two token sequences")
+            if label == "fp32 int8_kv":
+                int8_entry["f32_instance"]["launches"] = \
+                    n["decode_attention_int8"]
+            notes = eng.tokenizer.decode(toks, mode="sequential",
+                                         duration_per_batch=3.0)
+            same, total = agreement(toks)
+            song_wave = eng._device_wave(batch)
+            enc_o = eng._encoder(eng._log_mel(song_wave), cond)
+            (_, lens), dec_s = timed_s(
+                lambda: eng._decode(enc_o, eng._sample_rng(0)))
+            infos.append(
+                f"{label}: notes={len(notes)} decode_steps={steps} "
+                f"launches={n} greedy_token_agreement_with_default_serving="
+                f"{same / total:.6f} ({same}/{total}) song_decode_stage_s="
+                f"{dec_s:.4f} song_decode_steps={int(lens.max()) - 1}")
+            print(f"  {infos[-1]} [{smi}]", flush=True)
+        ph.info = f"{len(infos)} options [{smi}]"
+
+    with Phase("bench") as ph:
+        import argparse
+
+        from music2midi_tpu_torch import bench
+        from music2midi_tpu_torch.profiling import device_peak_flops
+
+        bargs = bench.parse_args([])
+        bargs.ckpt = str(RECORD)
+        beng = bench._load_engine(bargs, trained=True)
+        bsongs = bench._songs(bargs, 16000)[:2]
+        head, n_head = launches_of(
+            lambda: bench._run_workload(beng, bsongs, 1, 1, lat_trials=1))
+        require(n_head["log_mel_spectrogram_cuda"] > 0
+                and n_head["decode_attention_int8"] > 0,
+                f"bench: the kernels were not launched: {n_head}")
+        sec_args = argparse.Namespace(**{**vars(bargs), "max_decode": None})
+        seng = bench._load_engine(sec_args, trained=False)
+        sec = bench._run_workload(seng, bsongs, 1, 1, lat_trials=1)
+        peak = device_peak_flops()
+        result = bench.build_result(bargs, True, head, peak, kind, smi, sec)
+        if "H100" in kind:
+            require(result["mfu"] is not None, "bench: mfu is null on an H100")
+        require(result["n_notes"] > 0, "bench: no notes")
+        sec_mfu = result["secondary_random_forced256"]["mfu"]
+        ph.info = (
+            f"songs=2x180s songs_per_min={head['songs_per_min']:.3f} "
+            f"p50_song_latency_s={head['lat_sorted'][0]:.4f} "
+            f"mfu={result['mfu']} mfu_executed={result['mfu_executed']} "
+            f"decoded_tokens={head['tokens_real']} n_notes={head['n_notes']} "
+            f"decode_steps={[s['steps'] for s in head['decode_stats']]} "
+            f"rows_at_cap={head['rows_at_cap']} "
+            f"launches={n_head} secondary_random_forced256: songs_per_min="
+            f"{sec['songs_per_min']:.3f} p50_song_latency_s="
+            f"{sec['lat_sorted'][0]:.4f} mfu={sec_mfu} "
+            f"[{smi}]")
 
     with Phase("kernels"):
         print(json.dumps({"kernels": [

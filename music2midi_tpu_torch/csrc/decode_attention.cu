@@ -2,16 +2,20 @@
 //
 // Two kernels:
 //
-//   decode_attention_int8_kernel<RoundPV> replaces
+//   decode_attention_int8_kernel<Q, RoundPV> replaces
 //     music2midi_tpu/ops/decode_attention.py::decode_attention_int8
 //     (kernel _kernel): scores = (q . k8_l) ks_l in f32, plus the
 //     relative-position bias and keys <= step (causal; key `step` taken
 //     from this step's fresh quantized row) or keys < enc_len (cross);
-//     f32 softmax; out = sum_l (p_l vs_l) v8_l in f32, rounded to bf16.
-//     RoundPV = false is the TPU kernel's arithmetic; RoundPV = true
-//     rounds each p_l vs_l to bf16 before the PV pass (the fresh row's
-//     too), the arithmetic of music2midi_tpu/models/t5.py::_attention_int8,
-//     which the JAX engine serves with and so the port's engine too.
+//     f32 softmax; out = sum_l (p_l vs_l) v8_l in f32, rounded to Q.
+//     Q is the query's and the output's type.  For Q = bf16, RoundPV =
+//     false is the TPU kernel's arithmetic, and RoundPV = true rounds
+//     each p_l vs_l to bf16 before the PV pass (the fresh row's too), the
+//     arithmetic of music2midi_tpu/models/t5.py::_attention_int8, which
+//     the JAX engine serves with and so the port's engine too.  Q = float
+//     is that function in an fp32 engine with int8 KV: q, p_l vs_l and the
+//     output stay f32 (rounding p_l vs_l to f32 is a no-op, so there is
+//     one instance).  The +-7-level values of a 4-bit cache are int8 too.
 //   decode_attention_cross_t_kernel replaces
 //     music2midi_tpu/ops/decode_attention.py::decode_attention_cross_t
 //     (kernel _cross_kernel): the same cross attention over TRANSPOSED
@@ -85,7 +89,7 @@ constexpr int kMinBlocks = 4;  // CTAs an SM the int8 kernel is built for
 // field order and types match the ctypes structures of
 // music2midi_tpu_torch/ops/decode_attention.py
 struct Int8AttnArgs {
-    const __nv_bfloat16* q;  // [b q_sb + h q_sh + d]
+    const void* q;           // [b q_sb + h q_sh + d], bf16 or f32 (q_f32)
     const int8_t* k;         // [b k_sb + h k_sh + l k_sl + d]
     const int8_t* v;
     const float* ks;         // [b ks_sb + h ks_sh + l ks_sl]
@@ -95,11 +99,11 @@ struct Int8AttnArgs {
     const int8_t* vn;
     const float* kns;        // their scales [b kns_sb + h kns_sh]
     const float* vns;
-    __nv_bfloat16* out;      // (B, H, D) contiguous
+    void* out;               // (B, H, D) contiguous, q's type
     int64_t q_sb, q_sh, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl;
     int64_t ks_sb, ks_sh, ks_sl, vs_sb, vs_sh, vs_sl, bias_sh, bias_sl;
     int64_t kn_sb, kn_sh, vn_sb, vn_sh, kns_sb, kns_sh, vns_sb, vns_sh;
-    int H, n_keys, step, causal, round_pv;
+    int H, n_keys, step, causal, round_pv, q_f32;
 };
 
 struct CrossTArgs {
@@ -214,9 +218,23 @@ __device__ __forceinline__ void copy_row(float* dst, const float* src, int64_t s
     }
 }
 
-template <bool RoundPV>
+// a float as the output type
+template <typename Q>
+__device__ __forceinline__ Q to_out(float x);
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(float x) {
+    return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ float to_out<float>(float x) {
+    return x;
+}
+
+template <typename Q, bool RoundPV>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 decode_attention_int8_kernel(const Int8AttnArgs a) {
+    // this thread's 16 q values are kQWords 16-byte words: 2 of bf16, 4 of f32
+    constexpr int kQWords = static_cast<int>(sizeof(Q));
     // (n,) each: scores (then exp(score - max)), k scales, v scales, bias
     extern __shared__ __align__(16) float s[];
     __shared__ float red_max[kWarps], red_sum[kWarps];
@@ -235,8 +253,10 @@ decode_attention_int8_kernel(const Int8AttnArgs a) {
 
     // first every request that does not wait on another: q, the first
     // group of K rows, and the scale and bias rows into shared memory
-    const __nv_bfloat16* qp = a.q + b * a.q_sb + h * a.q_sh + 16 * c;
-    const uint4 q_lo = load16(qp), q_hi = load16(qp + 8);
+    const Q* qp = static_cast<const Q*>(a.q) + b * a.q_sb + h * a.q_sh + 16 * c;
+    uint4 qw[kQWords];
+#pragma unroll
+    for (int i = 0; i < kQWords; ++i) qw[i] = load16(qp + i * (16 / kQWords));
     // group g's loads: for u < kUnroll, this thread's 16-byte piece of the
     // K or V row of key 64 (kUnroll g + u) + tid / 4 (key `step`'s from
     // the fresh row)
@@ -263,8 +283,17 @@ decode_attention_int8_kernel(const Int8AttnArgs a) {
     const float kn_scale = causal ? a.kns[b * a.kns_sb + h * a.kns_sh] : 0.0f;
     const float vn_scale = causal ? a.vns[b * a.vns_sb + h * a.vns_sh] : 0.0f;
     float qf[16];
-    bf16x8(q_lo, qf);
-    bf16x8(q_hi, qf + 8);
+#pragma unroll
+    for (int i = 0; i < kQWords; ++i) {
+        if constexpr (kQWords == 2) {
+            bf16x8(qw[i], qf + 8 * i);
+        } else {
+            qf[4 * i] = __uint_as_float(qw[i].x);
+            qf[4 * i + 1] = __uint_as_float(qw[i].y);
+            qf[4 * i + 2] = __uint_as_float(qw[i].z);
+            qf[4 * i + 3] = __uint_as_float(qw[i].w);
+        }
+    }
 
     // scores: four threads per key, a group of kUnroll keys' rows in
     // flight while the group before is summed; the scale and bias rows
@@ -360,7 +389,7 @@ decode_attention_int8_kernel(const Int8AttnArgs a) {
     if (tid < kD) {
         float o = 0.0f;
         for (int w = 0; w < kWarps; ++w) o += part[w][tid];
-        a.out[static_cast<int64_t>(blockIdx.x) * kD + tid] = __float2bfloat16_rn(o);
+        static_cast<Q*>(a.out)[static_cast<int64_t>(blockIdx.x) * kD + tid] = to_out<Q>(o);
     }
 }
 
@@ -380,13 +409,16 @@ int launch_int8(const Int8AttnArgs& a, int pairs, void* stream) {
     // the score, scale and bias rows: 16 KB at 1024 keys, 64 at MAX_KEYS
     const size_t smem = 4 * static_cast<size_t>((a.n_keys + 3) & ~3) * sizeof(float);
     static const bool opted =
-        allow_smem(decode_attention_int8_kernel<false>, 16 * kMaxKeys)
-        && allow_smem(decode_attention_int8_kernel<true>, 16 * kMaxKeys);
+        allow_smem(decode_attention_int8_kernel<__nv_bfloat16, false>, 16 * kMaxKeys)
+        && allow_smem(decode_attention_int8_kernel<__nv_bfloat16, true>, 16 * kMaxKeys)
+        && allow_smem(decode_attention_int8_kernel<float, false>, 16 * kMaxKeys);
     if (!opted) return static_cast<int>(cudaErrorInvalidValue);
-    if (a.round_pv) {
-        decode_attention_int8_kernel<true><<<pairs, kThreads, smem, st>>>(a);
+    if (a.q_f32) {
+        decode_attention_int8_kernel<float, false><<<pairs, kThreads, smem, st>>>(a);
+    } else if (a.round_pv) {
+        decode_attention_int8_kernel<__nv_bfloat16, true><<<pairs, kThreads, smem, st>>>(a);
     } else {
-        decode_attention_int8_kernel<false><<<pairs, kThreads, smem, st>>>(a);
+        decode_attention_int8_kernel<__nv_bfloat16, false><<<pairs, kThreads, smem, st>>>(a);
     }
     return static_cast<int>(cudaGetLastError());
 }
@@ -557,7 +589,7 @@ extern "C" int m2m_decode_attention_int8(
     const void* kn, const void* vn, const void* kns, const void* vns,
     const void* bias, int step, void* stream) {
     Int8AttnArgs a = *static_cast<const Int8AttnArgs*>(args);
-    a.q = static_cast<const __nv_bfloat16*>(q);
+    a.q = q;
     a.q_sb = q_sb;
     a.q_sh = q_sh;
     if (a.causal) {

@@ -17,16 +17,22 @@ Two modes, as in the JAX package: ``dtype=torch.float32`` is the parity
 mode (``torch.fft`` mel, no quantization); ``dtype=torch.bfloat16`` is the
 serving mode (on a CUDA device the hand-written CUDA mel kernel, and int8
 KV with every attention block of the decode loop in the decode-attention
-kernel; ``pallas_cross`` adds the transposed-cross kernel).
+kernel; ``pallas_cross`` adds the transposed-cross kernel).  The JAX
+engine's knobs are attributes with its names and defaults:
+``suppress_tokens``, ``int8_kv``, ``int8_weights``, ``kv_bits``,
+``unroll``, ``temperature``, ``top_k``, ``sample_seed``,
+``input_dither`` and ``mel_noise_floor``.
 
 Everything runs on ``device`` (``cuda`` unless the caller passes
-``device="cpu"``); no threads are started.  Not ported yet:
-``from_torch_checkpoint``, sampling decode, input dither, the
-``mel_noise_floor`` setter.
+``device="cpu"``); no threads are started.  Checkpoints: the npz export
+(``from_npz``) and the reference's Lightning ``.ckpt``
+(``from_torch_checkpoint``); an orbax directory needs orbax, which the
+port does not use (``from_orbax`` raises).
 """
 
 from __future__ import annotations
 
+import functools
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Union
 
@@ -36,6 +42,7 @@ import torch
 from .. import audio
 from ..config import ConfigNode, resolve_config
 from ..midi import MidiFile
+from ..models.convert import reference_checkpoint_to_params
 from ..models.t5 import (
     T5Config,
     T5Model,
@@ -50,6 +57,7 @@ from ..ops.mel import (
     log_mel_config_from,
     log_mel_spectrogram,
     log_mel_spectrogram_fast,
+    num_frames,
 )
 from ..tokenizer import MidiTokenizer
 from ..utils import numpy_to_midi
@@ -57,6 +65,17 @@ from ..weights import load_npz
 from .decode import DecodeConfig, generate_tokens
 
 _BUCKET_SIZES = (8, 16, 32, 64, 128)
+
+
+@functools.lru_cache(maxsize=4)
+def _dither_tile(split_size: int) -> np.ndarray:
+    """Unit-RMS gaussian dither tile for ``Music2MIDI.input_dither``, one
+    for every chunk: numpy's ``default_rng(0xD17E12)``, the JAX engine's
+    tile bit for bit, so the same waveform gives the same output in both
+    engines and across processes."""
+    return np.random.default_rng(0xD17E12).standard_normal(
+        split_size
+    ).astype(np.float32)
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -112,8 +131,43 @@ class Music2MIDI:
         self.last_decode_stats: List[dict] = []
         # serving mode: the cross blocks through the transposed-cross
         # kernel (ops/decode_attention.py::decode_attention_cross_t) over a
-        # cross-KV stored (B, H, D, L); off as in the JAX engine
+        # cross-KV stored (B, H, D, L); off as in the JAX engine, and
+        # ignored unless the KV is quantized at 8 bits
         self.pallas_cross: bool = False
+        # token ids masked to -inf in the decode loop, e.g. (eos,) to force
+        # every chunk to decode_max_length tokens
+        self.suppress_tokens: tuple = ()
+        # quantized self- and cross-KV: None = on exactly when the dtype is
+        # not fp32 (serving mode); True / False override
+        self.int8_kv: Optional[bool] = None
+        # int8 weight-only quantization of the decode projections
+        # (models/t5.py::_quantize_w); off, as in the JAX engine
+        self.int8_weights: bool = False
+        # quantized-KV width: 8 (+-127 levels) or 4 (+-7 levels, stored in
+        # int8); a width other than 8 implies quantized KV
+        self.kv_bits: int = 8
+        # decode steps between two EOS read-backs; greedy tokens unchanged
+        self.unroll: int = 1
+        # sampling: temperature 0.0 is greedy; top_k 0 keeps every token;
+        # one generator a batch from sample_seed (_sample_rng)
+        self.temperature: float = 0.0
+        self.top_k: int = 0
+        self.sample_seed: int = 0
+        # RMS of a fixed gaussian dither added to every chunk
+        # (_chunk_waveform); 0.0 = off, the JAX engine's default
+        self.input_dither: float = 0.0
+
+    @property
+    def mel_noise_floor(self) -> float:
+        """RMS sigma of the white-noise floor at which every mel bin is
+        clamped before the log (``ops/mel.py::noise_mel_floor``); bins
+        above it are unchanged.  0.0 = off, the JAX engine's default."""
+        return self.mel_config.noise_floor_sigma
+
+    @mel_noise_floor.setter
+    def mel_noise_floor(self, sigma: float) -> None:
+        self.mel_config = self.mel_config._replace(
+            noise_floor_sigma=float(sigma))
 
     # ------------------------------------------------------------------ #
     # constructors                                                        #
@@ -126,6 +180,32 @@ class Music2MIDI:
         """Load a single-file npz export (the checkpoint of record)."""
         sd, saved_cfg = load_npz(path)
         return cls(sd, config if config is not None else saved_cfg, **kw)
+
+    @classmethod
+    def from_torch_checkpoint(cls, ckpt_path: Union[str, Path],
+                              config: Optional[Union[ConfigNode, dict]] = None,
+                              **kw) -> "Music2MIDI":
+        """Load the reference's PyTorch-Lightning checkpoint (or a bare HF
+        ``T5ForConditionalGeneration`` state_dict) through
+        ``models/convert.py``.  A ``.ckpt`` embeds no config, so ``config``
+        (default: the packaged one) must name its architecture."""
+        blob = torch.load(ckpt_path, map_location="cpu", weights_only=False)
+        state_dict = blob.get("state_dict", blob)
+        cfg = resolve_config(config)
+        params = reference_checkpoint_to_params(state_dict,
+                                                t5_config_from(cfg))
+        return cls(params, cfg, **kw)
+
+    @classmethod
+    def from_orbax(cls, ckpt_dir: Union[str, Path], *args,
+                   **kw) -> "Music2MIDI":
+        """An orbax checkpoint directory: not readable here.  It needs
+        orbax, which the port does not use; export the weights with
+        ``tools/export_npz.py`` and load them with ``from_npz``."""
+        raise NotImplementedError(
+            f"{ckpt_dir}: orbax checkpoint directories need orbax, which the "
+            "PyTorch port does not use; export an npz (tools/export_npz.py) "
+            "and load it with Music2MIDI.from_npz")
 
     @classmethod
     def from_random(cls, config: Optional[Union[ConfigNode, dict]] = None,
@@ -141,11 +221,40 @@ class Music2MIDI:
     # the device program                                                  #
     # ------------------------------------------------------------------ #
 
-    def _dcfg(self) -> DecodeConfig:
-        """int8 self- and cross-KV in serving mode, none in the fp32 parity
-        mode.
+    def cond_index_from_names(self, **names) -> List[int]:
+        """Conditioning names -> indices, e.g.
+        ``cond_index_from_names(genre="pop", difficulty="beginner")`` ->
+        ``[1, 0]``; a type not named takes its first category."""
+        out = []
+        for key in self.config.conditioning.keys():
+            values = list(self.config.conditioning[key])
+            name = names.get(key, values[0])
+            if name not in values:
+                raise ValueError(f"unknown {key} {name!r}; choices: {values}")
+            out.append(values.index(name))
+        return out
 
-        With int8 KV every attention block goes through the
+    def _sample_rng(self, batch_start: int) -> Optional[torch.Generator]:
+        """The sampling generator of one batch (None when greedy): a
+        ``torch.Generator`` on the engine's device seeded with the first
+        64-bit word of ``numpy.random.SeedSequence((sample_seed,
+        batch_start))``, so every batch of a call draws its own numbers and
+        one seed gives one output.  The JAX engine folds batch_start into
+        ``PRNGKey(sample_seed)``; its bits cannot be reproduced here."""
+        if self.temperature == 0.0:
+            return None
+        seed = np.random.SeedSequence(
+            (int(self.sample_seed), int(batch_start))
+        ).generate_state(1, np.uint64)[0]
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def _dcfg(self) -> DecodeConfig:
+        """The JAX engine's ``_dcfg``: quantized self- and cross-KV when
+        ``int8_kv`` says so (None: exactly when the dtype is not fp32) or
+        when ``kv_bits`` is not 8, with its sampling, suppression, weight
+        quantization, width, unroll and ``pallas_cross``.
+
+        With quantized KV every attention block goes through the
         decode-attention kernel (``pallas_attention``), where the JAX
         engine leaves its Pallas kernel off: on the TPU that kernel lost to
         XLA's fusion (``music2midi_tpu/ops/decode_attention.py``), while on
@@ -153,15 +262,34 @@ class Music2MIDI:
         section 5) and one launch of the kernel replaces about ten of the
         plain chain.  The kernel runs with ``round_pv``, so the engine
         serves the JAX engine's arithmetic (``_attention_int8``: ``p * vs``
-        rounded to bf16).  ``pallas_cross`` moves the cross blocks to the
-        transposed-cross kernel."""
-        int8 = self.t5_config.dtype != torch.float32
+        rounded to the compute dtype), in bf16 and, through its f32
+        instance, in fp32.  ``pallas_cross`` moves the cross blocks of an
+        8-bit cache to the transposed-cross kernel."""
+        quant = self.int8_kv
+        if quant is None:
+            quant = self.t5_config.dtype != torch.float32
+        if self.kv_bits != 8:
+            quant = True  # a width other than 8 implies quantized KV
         return DecodeConfig(
             max_length=self.decode_max_length,
-            quantize_kv=int8,
-            pallas_attention=int8,
-            pallas_cross=int8 and self.pallas_cross,
+            temperature=self.temperature,
+            top_k=self.top_k,
+            suppress_tokens=tuple(self.suppress_tokens),
+            quantize_kv=bool(quant),
+            quantize_weights=bool(self.int8_weights),
+            pallas_attention=bool(quant),
+            pallas_cross=bool(self.pallas_cross),
+            unroll=int(self.unroll),
+            kv_bits=int(self.kv_bits),
         )
+
+    @property
+    def encoder_len(self) -> int:
+        """Encoder sequence length of one chunk: its mel frames plus the
+        prepended conditioning vectors (the L of ``profiling.decode_flops``;
+        190 for the 3-s chunk)."""
+        return num_frames(self._split_size(), self.mel_config) \
+            + self.num_conditioning
 
     def _encode_wave(self, batch: np.ndarray) -> np.ndarray:
         """Wave transport: int16 in serving mode (round half up through
@@ -197,17 +325,20 @@ class Music2MIDI:
         embeds = conditioning_prepend(self.model, mel, cond)
         return encode(self.model, embeds, self.t5_config)
 
-    def _decode(self, encoder_hidden: torch.Tensor):
-        """Greedy decode of the batch -> (tokens, lengths)."""
+    def _decode(self, encoder_hidden: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        """Decode of the batch -> (tokens, lengths); ``generator`` draws
+        the samples when the engine samples."""
         return generate_tokens(self.model, encoder_hidden, self.t5_config,
-                               self._dcfg())
+                               self._dcfg(), generator)
 
     def _encode_and_generate(self, wave_chunks: np.ndarray,
-                             cond_index: np.ndarray):
+                             cond_index: np.ndarray,
+                             generator: Optional[torch.Generator] = None):
         """(B, split) chunks + (B, n_cond) conditioning -> (tokens, lengths)
         on the device: log-mel -> conditioning -> encoder -> decode."""
         mel = self._log_mel(self._device_wave(wave_chunks))
-        return self._decode(self._encoder(mel, cond_index))
+        return self._decode(self._encoder(mel, cond_index), generator)
 
     # ------------------------------------------------------------------ #
     # inference                                                           #
@@ -224,13 +355,20 @@ class Music2MIDI:
                      / self.tokenizer.time_step)
 
     def _chunk_waveform(self, waveform: np.ndarray) -> np.ndarray:
-        """Zero-pad to a 3-s multiple and reshape to (n_chunks, split)."""
+        """Zero-pad to a 3-s multiple and reshape to (n_chunks, split);
+        with ``input_dither`` add the dither tile, scaled, to every chunk
+        (pad included), as the JAX engine does here, the one place that
+        ``sample_notes`` and ``generate_batch`` share."""
         split_size = self._split_size()
         wave = np.asarray(waveform, dtype=np.float32)
         n_chunks = max(1, -(-len(wave) // split_size))
         padded = np.zeros(n_chunks * split_size, dtype=np.float32)
         padded[: len(wave)] = wave
-        return padded.reshape(n_chunks, split_size)
+        chunks = padded.reshape(n_chunks, split_size)
+        if self.input_dither > 0.0:
+            chunks = chunks + np.float32(self.input_dither) * \
+                _dither_tile(split_size)
+        return chunks
 
     def _pad_batch(self, batch: np.ndarray,
                    cond_index: Optional[Sequence[int]] = None):
@@ -248,12 +386,13 @@ class Music2MIDI:
             cond = np.asarray(cond_index, dtype=np.int64)
         return batch, np.broadcast_to(cond, (b, len(cond))).copy()
 
-    def _run_batch(self, batch: np.ndarray, cond: np.ndarray,
-                   n: int) -> torch.Tensor:
+    def _run_batch(self, batch: np.ndarray, cond: np.ndarray, n: int,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
         """A bucket-padded batch whose first n rows are real -> their tokens
         (n, width) on the device, the columns trimmed to the longest real
         row (the rest is PAD); appends the batch's decode stats."""
-        tokens, lengths = self._encode_and_generate(batch, cond)
+        tokens, lengths = self._encode_and_generate(batch, cond, generator)
         len_h = lengths.cpu().numpy()
         self.last_decode_stats.append({
             "batch_width": int(len(batch)),
@@ -273,7 +412,8 @@ class Music2MIDI:
         for start in range(0, len(chunks), max_bs):
             real = chunks[start:start + max_bs]
             batch, cond_batch = self._pad_batch(real, cond_index)
-            yield start, self._run_batch(batch, cond_batch, len(real))
+            yield start, self._run_batch(batch, cond_batch, len(real),
+                                         self._sample_rng(start))
 
     def generate(
         self,
@@ -340,7 +480,9 @@ class Music2MIDI:
         conditioning.  Each row's time offset is its chunk index within
         its own song.  ``audio_paths`` (WAV) are loaded one at a time as
         the stream reaches them; no thread is started.
-        ``last_decode_stats`` holds one entry per dispatched batch."""
+        ``last_decode_stats`` holds one entry per dispatched batch.  When
+        sampling, batch k draws from ``_sample_rng(k)``, as in the JAX
+        engine."""
         if (waveforms is None) == (audio_paths is None):
             raise ValueError("pass exactly one of waveforms / audio_paths")
         n_songs = len(waveforms if waveforms is not None else audio_paths)
@@ -371,7 +513,9 @@ class Music2MIDI:
             batch[:n] = np.stack(rows)
             cond = np.zeros((b, n_cond), np.int64)
             cond[:n] = np.stack(conds)
-            tokens = self._run_batch(batch, cond, n)
+            # batch k of the call draws from _sample_rng(k)
+            rng = self._sample_rng(len(self.last_decode_stats))
+            tokens = self._run_batch(batch, cond, n, rng)
             start_idx = torch.as_tensor(local_idx, device=tokens.device) \
                 * n_steps
             per_chunk.extend(detokenize_to_host(tokens, start_idx,

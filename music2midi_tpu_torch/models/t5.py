@@ -25,6 +25,16 @@ the cache only.  That is the JAX package's causal mask (-1e9 on keys after
 columns.  The cross-KV is not padded to a multiple of 128: that pad is a
 TPU lane-layout choice, and the unpadded keys give the same outputs.
 
+Serving options, as in the JAX package: ``prepare_decode_params(
+quantize_weights=True)`` stores every decode projection as int8 values
+with per-column scales (``_quantize_w``), applied to the f32 product; the
+quantized KV caches hold +-127 levels (``bits=8``) or +-7 (``bits=4``).
+torch has no 4-bit integer type, so the +-7 levels are stored unpacked in
+int8: the same numbers as the JAX package's int4 arrays, and no saving of
+bytes.  The width travels with the self cache (``KVCache.bits``), where the
+JAX package reads it off the cache's dtype, so that each step's fresh row
+is quantized at the cache's own width.
+
 Given an ``Int8AttentionPlan`` over its caches (``int8_attention_plan``;
 the JAX package's ``use_pallas`` route), ``decode_step`` sends the int8
 attention blocks through the int8 decode-attention kernel of
@@ -303,8 +313,30 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, l, h * d)
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
-    """Bias-free linear x (..., in) @ w (in, out) in the compute dtype."""
+def _quantize_w(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-column int8 weight quantization of (in, out)
+    -> (int8 values (in, out), f32 scales (out,)): column amax / 127,
+    round half to even, as the JAX package's ``_quantize_w``."""
+    w = w.float()
+    scale = torch.clamp(w.abs().amax(dim=0) / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(w / scale), -127.0, 127.0)
+    return q.to(torch.int8), scale
+
+
+def _proj(x: torch.Tensor, w, dtype) -> torch.Tensor:
+    """Bias-free linear x (..., in) @ w (in, out) in the compute dtype.
+
+    ``w`` may be an int8 (values, scales) pair from ``_quantize_w``: the
+    product is taken in f32 and scaled there, then rounded once to the
+    compute dtype, as the JAX package scales its f32 accumulator.  A bf16
+    ``torch.matmul`` would round its output before the scale (a second
+    rounding); the product of a bf16 (or f32) and an int8 value is exact
+    in f32, so an f32 product of the upcast operands is that accumulator up
+    to the order of its sums."""
+    if isinstance(w, tuple):
+        vals, scale = w
+        y = torch.matmul(x.to(dtype).float(), vals.float())
+        return (y * scale).to(dtype)
     return torch.matmul(x.to(dtype), w.to(dtype))
 
 
@@ -415,13 +447,22 @@ def conditioning_prepend(model: T5Model, features: torch.Tensor,
 # --------------------------------------------------------------------- #
 
 
-def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+_KV_LEVELS = {8: 127.0, 4: 7.0}  # quantized-KV width -> levels
+
+
+def _quantize_kv(x: torch.Tensor,
+                 bits: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, H, L, D) -> (int8 values, fp32 scales laid out (B, H, 1, L)):
-    symmetric per-position amax / 127, round half to even."""
+    symmetric per-position amax / levels, round half to even; +-127 levels
+    at ``bits=8``, +-7 at ``bits=4`` (the JAX package's int4 values, kept
+    unpacked in int8)."""
+    if bits not in _KV_LEVELS:
+        raise ValueError(f"_quantize_kv: bits must be 8 or 4, got {bits}")
+    levels = _KV_LEVELS[bits]
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(amax, min=1e-8) / 127.0
-    q = torch.clamp(torch.round(xf / scale), -127.0, 127.0)
+    scale = torch.clamp(amax, min=1e-8) / levels
+    q = torch.clamp(torch.round(xf / scale), -levels, levels)
     return q.to(torch.int8), scale.transpose(-1, -2)
 
 
@@ -475,9 +516,11 @@ def transpose_cross_kv(cross_kv: CrossKV) -> CrossKV:
 
 @torch.no_grad()
 def precompute_cross_kv(model: T5Model, encoder_hidden: torch.Tensor,
-                        cfg: T5Config, quantize: bool = False) -> CrossKV:
+                        cfg: T5Config, quantize: bool = False,
+                        bits: int = 8) -> CrossKV:
     """Cross-attention K/V of every decoder layer, computed once per
-    generation; ``quantize`` stores int8 values with (B, H, 1, L) scales."""
+    generation; ``quantize`` stores int8 values (``bits`` wide: +-127 or
+    +-7 levels) with (B, H, 1, L) scales."""
     out = []
     for layer in model.decoder.layers:
         ca = layer.cross_attn
@@ -486,16 +529,32 @@ def precompute_cross_kv(model: T5Model, encoder_hidden: torch.Tensor,
         v = _split_heads(_proj(encoder_hidden, ca.v, cfg.dtype),
                          cfg.num_heads, cfg.d_kv)
         if quantize:
-            out.append((_quantize_kv(k), _quantize_kv(v)))
+            out.append((_quantize_kv(k, bits), _quantize_kv(v, bits)))
         else:
             out.append((k, v))
     return CrossKV(layers=out, enc_len=encoder_hidden.shape[1])
 
 
+class KVCache(list):
+    """The self-attention cache: per layer a (K, V) pair, and ``bits``, the
+    width at which its quantized entries hold their values (8: +-127
+    levels, 4: +-7, both stored in int8).  ``decode_step`` quantizes each
+    step's fresh row at this width; the JAX package reads the width off
+    the entries' dtype (int8 or int4), which int8 storage cannot tell."""
+
+    def __init__(self, layers, bits: int = 8):
+        super().__init__(layers)
+        if bits not in _KV_LEVELS:
+            raise ValueError(f"KVCache: bits must be 8 or 4, got {bits}")
+        self.bits = bits
+
+
 def init_kv_cache(batch: int, max_len: int, cfg: T5Config,
-                  quantize: bool = False, device=None) -> list:
+                  quantize: bool = False, device=None,
+                  bits: int = 8) -> KVCache:
     """Per layer a (K, V) pair of (B, H, max_len, d_kv) buffers, or of int8
-    (values, (B, H, 1, max_len) fp32 scales) pairs when ``quantize``."""
+    (values, (B, H, 1, max_len) fp32 scales) pairs when ``quantize``, the
+    values ``bits`` wide."""
     shape = (batch, cfg.num_heads, max_len, cfg.d_kv)
     sshape = (batch, cfg.num_heads, 1, max_len)
 
@@ -505,32 +564,43 @@ def init_kv_cache(batch: int, max_len: int, cfg: T5Config,
                     torch.ones(sshape, dtype=torch.float32, device=device))
         return torch.zeros(shape, dtype=cfg.dtype, device=device)
 
-    return [(one(), one()) for _ in range(cfg.num_decoder_layers)]
+    return KVCache([(one(), one()) for _ in range(cfg.num_decoder_layers)],
+                   bits)
 
 
-def prepare_decode_params(model: T5Model, cfg: T5Config) -> dict:
+def prepare_decode_params(model: T5Model, cfg: T5Config,
+                          quantize_weights: bool = False) -> dict:
     """Decode-time weights, built once per generation: projections cast to
     the compute dtype, self-attention q/k/v fused into one (d, 3*H*D)
     matrix and wi_0/wi_1 into one (d, 2*d_ff).  Layer-norm weights keep
-    their stored dtype (rms_norm multiplies before its final cast)."""
+    their stored dtype (rms_norm multiplies before its final cast).
+
+    ``quantize_weights`` stores every projection, lm_head included, as an
+    int8 (values, per-column scales) pair (``_quantize_w``), quantized from
+    the weights as stored (the fused matrices from their concatenation);
+    the embedding stays in the compute dtype, as in the JAX package."""
     dt = cfg.dtype
+
+    def cast(w):
+        return _quantize_w(w) if quantize_weights else w.to(dt)
+
     layers = []
     for layer in model.decoder.layers:
         sa, ca, mlp = layer.self_attn, layer.cross_attn, layer.mlp
         layers.append({
             "ln1": layer.ln1, "ln2": layer.ln2, "ln3": layer.ln3,
-            "sa_qkv": torch.cat([sa.q, sa.k, sa.v], dim=1).to(dt),
-            "sa_o": sa.o.to(dt),
-            "ca_q": ca.q.to(dt),
-            "ca_o": ca.o.to(dt),
-            "mlp_wi": torch.cat([mlp.wi_0, mlp.wi_1], dim=1).to(dt),
-            "mlp_wo": mlp.wo.to(dt),
+            "sa_qkv": cast(torch.cat([sa.q, sa.k, sa.v], dim=1)),
+            "sa_o": cast(sa.o),
+            "ca_q": cast(ca.q),
+            "ca_o": cast(ca.o),
+            "mlp_wi": cast(torch.cat([mlp.wi_0, mlp.wi_1], dim=1)),
+            "mlp_wo": cast(mlp.wo),
         })
     return {
         "embedding": model.shared_embedding.to(dt),
         "rel_bias": model.decoder.rel_bias,
         "final_ln": model.decoder.final_ln,
-        "lm_head": model.lm_head.to(dt),
+        "lm_head": cast(model.lm_head),
         "layers": layers,
     }
 
@@ -549,23 +619,25 @@ def decoder_bias_rows(rel_bias: torch.Tensor, max_len: int,
 
 
 def int8_attention_plan(kv_cache: list, cross_kv: CrossKV,
-                        bias_rows: torch.Tensor) -> Int8AttentionPlan:
+                        bias_rows: torch.Tensor,
+                        dtype=torch.bfloat16) -> Int8AttentionPlan:
     """The launch plan of the int8 kernel over one generation's int8 self
     cache and, unless it is transposed (``decode_attention_cross_t``), its
-    int8 cross-KV, with ``round_pv`` as the engine serves."""
+    int8 cross-KV, with ``round_pv`` as the engine serves, for queries of
+    the compute ``dtype`` (bf16, or f32: the kernel's f32 instance)."""
     cross = None if cross_kv.transposed else cross_kv.layers
     return Int8AttentionPlan(kv_cache, bias_rows, cross, cross_kv.enc_len,
-                             round_pv=True)
+                             round_pv=True, dtype=dtype)
 
 
-def _write_kv(entry, new: torch.Tensor, step: int):
+def _write_kv(entry, new: torch.Tensor, step: int, bits: int):
     """Write this step's (B, H, 1, D) K or V row into a cache entry, in
     place: a plain buffer, or an int8 (values, scales) pair (the row is
-    quantized with its own per-(B, H) scale).  -> the quantized row and
-    its scale for an int8 entry, else None."""
+    quantized with its own per-(B, H) scale, ``bits`` wide).  -> the
+    quantized row and its scale for an int8 entry, else None."""
     if isinstance(entry, tuple):
         vals, scales = entry
-        q8, s = _quantize_kv(new)
+        q8, s = _quantize_kv(new, bits)
         vals[:, :, step:step + 1] = q8
         scales[:, :, :, step:step + 1] = s
         return q8, s
@@ -586,14 +658,15 @@ def decode_step(
     dparams: dict,  # prepare_decode_params output
     token: torch.Tensor,  # (B,) current input token
     step: int,  # position of `token`
-    kv_cache: list,
+    kv_cache: KVCache,  # init_kv_cache(...)
     cross_kv: CrossKV,
     cfg: T5Config,
     bias_rows: torch.Tensor,  # decoder_bias_rows(...)
     plan: Optional[Int8AttentionPlan] = None,  # int8_attention_plan(...)
 ) -> torch.Tensor:
     """One incremental decoder step -> logits (B, vocab).  Writes this
-    step's K/V into ``kv_cache`` at ``step`` and attends over [0, step].
+    step's K/V into ``kv_cache`` at ``step`` (quantized at the cache's
+    ``bits``) and attends over [0, step].
 
     Routes, as the JAX ``decode_step``: with a ``plan`` (built over these
     caches by ``int8_attention_plan``; JAX's ``use_pallas``) an int8 self
@@ -602,9 +675,11 @@ def decode_step(
     through ``decode_attention_cross_t``; otherwise ``_attention_int8``
     (int8) or ``attention``.  The int8 kernel runs with ``round_pv``, so
     it computes ``_attention_int8``'s arithmetic (``p * vs`` rounded to
-    bf16), the JAX engine's serving route, in the self blocks of the
-    ``pallas_cross`` route too, as there.  The kernels read the cache
-    buffers in place, never copies."""
+    the compute dtype: bf16, or f32 where that is a no-op), the JAX
+    engine's serving route, in the self blocks of the ``pallas_cross``
+    route too, as there; it takes the +-7-level entries of a 4-bit cache
+    as it takes the +-127 ones.  The kernels read the cache buffers in
+    place, never copies."""
     dt = cfg.dtype
     H, D = cfg.num_heads, cfg.d_kv
     x = dparams["embedding"][token][:, None]  # (B, 1, d_model)
@@ -617,8 +692,8 @@ def decode_step(
         qkv = _proj(h, layer["sa_qkv"], dt)
         q, k_new, v_new = (_split_heads(p, H, D) for p in qkv.chunk(3, dim=-1))
         k_entry, v_entry = kv_cache[i]
-        k_newq = _write_kv(k_entry, k_new, step)
-        v_newq = _write_kv(v_entry, v_new, step)
+        k_newq = _write_kv(k_entry, k_new, step, kv_cache.bits)
+        v_newq = _write_kv(v_entry, v_new, step, kv_cache.bits)
         k_seen, v_seen = _prefix(k_entry, n), _prefix(v_entry, n)
         if k_newq is not None and plan is not None:
             h = plan.causal(i, q, k_newq, v_newq, step)

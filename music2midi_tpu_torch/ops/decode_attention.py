@@ -15,7 +15,14 @@ with the TPU kernel's arguments and arithmetic:
     ``round_pv=True`` rounds each ``p * vs`` to bf16 before the PV
     products instead: the arithmetic of the JAX package's serving route,
     ``models/t5.py::_attention_int8``, which the port's engine serves
-    with (its JAX twin never enables the TPU kernel).
+    with (its JAX twin never enables the TPU kernel).  A float32 query
+    takes the kernel's f32 instance: q, ``p * vs`` and the output stay
+    f32 (``round_pv`` rounds to the compute dtype, f32, which is a no-op),
+    the arithmetic of ``_attention_int8`` in an fp32 engine with int8 KV.
+    The TPU kernel rounds an f32 query to bf16 at its call; the port's
+    engine needs ``_attention_int8``'s f32 arithmetic there, as the JAX
+    engine serves it.  The +-7-level caches of ``kv_bits=4`` are int8
+    arrays too, so the kernel takes them as they are.
   * ``decode_attention_cross_t`` (TPU kernel ``decode_attention_cross_t``):
     cross attention over a TRANSPOSED (B, H, D, L) int8 cache
     (``transpose_cross_entry``: a view of a copy whose rows are padded to
@@ -108,13 +115,16 @@ def decode_attention_int8_plain(
     arithmetic (``p * vs`` in f32); ``round_pv=True`` rounds each
     ``p * vs`` to bf16 before the PV products, the fresh row's too, as
     the JAX package's serving route ``models/t5.py::_attention_int8``
-    does over the post-write cache."""
+    does over the post-write cache.  A float32 q is the f32 instance's:
+    q, ``p * vs`` and the output unrounded (``_attention_int8`` at f32);
+    any other q is rounded to bf16."""
     k8, ks = k_entry
     v8, vs = v_entry
     B, H, L, D = k8.shape
     if not causal and enc_len <= 0:
         enc_len = L  # no pad mask (0 would mask every key)
-    qf = q.to(torch.bfloat16).float()  # (B, H, 1, D)
+    f32 = q.dtype == torch.float32
+    qf = q.float() if f32 else q.to(torch.bfloat16).float()  # (B, H, 1, D)
     kf, vf = k8.float(), v8.float()
     ks, vs = ks[:, :, 0, :], vs[:, :, 0, :]  # (B, H, L)
     l_pos = torch.arange(L, device=q.device)
@@ -136,10 +146,10 @@ def decode_attention_int8_plain(
     e = torch.exp(scores - m)
     p = e / e.sum(dim=-1, keepdim=True)  # (B, H, L) f32
     pv = p * vs
-    if round_pv:
+    if round_pv and not f32:
         pv = pv.to(torch.bfloat16).float()
     out = torch.matmul(pv[:, :, None, :], vf)  # (B, H, 1, D)
-    return out.to(torch.bfloat16).to(q.dtype)
+    return out if f32 else out.to(torch.bfloat16).to(q.dtype)
 
 
 def transpose_cross_entry(entry: Entry) -> Entry:
@@ -205,7 +215,7 @@ _Int8Args = _struct(
     "q_sb q_sh k_sb k_sh k_sl v_sb v_sh v_sl ks_sb ks_sh ks_sl "
     "vs_sb vs_sh vs_sl bias_sh bias_sl kn_sb kn_sh vn_sb vn_sh "
     "kns_sb kns_sh vns_sb vns_sh",
-    "H n_keys step causal round_pv",
+    "H n_keys step causal round_pv q_f32",
 )
 _CrossTArgs = _struct(
     "CrossTArgs",
@@ -257,16 +267,18 @@ def _check_f32(name: str, t: torch.Tensor, shape: tuple) -> None:
 def _q_aligned(q: torch.Tensor, q_strides) -> bool:
     """Each (b, h) row of q starts 16 bytes aligned, with a unit last
     stride: the kernels read it 16 bytes at a time."""
+    per16 = 16 // q.element_size()
     return (q_strides[3] == 1 and q.data_ptr() % 16 == 0
-            and q_strides[0] % 8 == 0 and q_strides[1] % 8 == 0)
+            and q_strides[0] % per16 == 0 and q_strides[1] % per16 == 0)
 
 
-def _query(q: torch.Tensor, B: int, H: int, D: int) -> torch.Tensor:
-    """q as bf16 (B, H, 1, D) with 16-byte aligned rows (a view if it
+def _query(q: torch.Tensor, B: int, H: int, D: int,
+           dtype=torch.bfloat16) -> torch.Tensor:
+    """q as ``dtype`` (B, H, 1, D) with 16-byte aligned rows (a view if it
     has them)."""
     if tuple(q.shape) != (B, H, 1, D):
         raise ValueError(f"q: needs {(B, H, 1, D)}, got {tuple(q.shape)}")
-    q = q.to(torch.bfloat16)
+    q = q.to(dtype)
     return q if _q_aligned(q, q.stride()) else q.contiguous()
 
 
@@ -308,7 +320,8 @@ def _pack_int8(k_entry: Entry, v_entry: Entry, n_keys: int, causal: bool,
     """Check int8 K/V buffers and their scales as the kernel reads them
     (16-byte rows through their strides, f32 scales at any stride) and pack
     the argument fields they fix; q, the fresh rows, the bias and the step
-    are set per launch."""
+    are set per launch.  ``out``'s dtype, bf16 or f32, picks the kernel's
+    instance, and q must have the same."""
     k8, ks = k_entry
     v8, vs = v_entry
     _check_int8("k", k8, 4)
@@ -327,7 +340,7 @@ def _pack_int8(k_entry: Entry, v_entry: Entry, n_keys: int, causal: bool,
         ks_sb=ks.stride(0), ks_sh=ks.stride(1), ks_sl=ks.stride(3),
         vs_sb=vs.stride(0), vs_sh=vs.stride(1), vs_sl=vs.stride(3),
         H=H, n_keys=n_keys, step=-1, causal=int(causal),
-        round_pv=int(round_pv),
+        round_pv=int(round_pv), q_f32=int(out.dtype == torch.float32),
     )
 
 
@@ -359,10 +372,12 @@ def decode_attention_int8(
     The kernel for CUDA tensors, ``decode_attention_int8_plain`` for CPU
     tensors.  ``round_pv`` rounds each ``p * vs`` to bf16 before the PV
     products (the serving arithmetic of ``_attention_int8``); off, it is
-    the TPU kernel's arithmetic.  The kernel reads only the visible keys, through the
-    operands' strides: keys 0..step (causal; key ``step`` from the fresh
-    row) or 0..enc_len-1 (cross), so a caller may pass a whole
-    ``max_length`` cache buffer.  ``bias`` is indexed by key position
+    the TPU kernel's arithmetic.  A float32 q launches the f32 instance
+    (q, ``p * vs`` and the output in f32); any other is taken as bf16.
+    The kernel reads only the visible keys, through the operands'
+    strides: keys 0..step (causal; key ``step`` from the fresh row) or
+    0..enc_len-1 (cross), so a caller may pass a whole ``max_length``
+    cache buffer.  ``bias`` is indexed by key position
     (``bias[h, j]`` for key j) and may be a strided view.  Every call
     checks and packs all of its operands; the decode loop calls the kernel
     through an ``Int8AttentionPlan``, which does that once a generation."""
@@ -373,9 +388,10 @@ def decode_attention_int8(
     B, H, L, D = k_entry[0].shape
     _check_head_dim(D)
     n_keys = _visible_keys(causal, step, enc_len, L)
-    out = torch.empty((B, H, 1, D), dtype=torch.bfloat16, device=q.device)
+    dt = torch.float32 if q.dtype == torch.float32 else torch.bfloat16
+    out = torch.empty((B, H, 1, D), dtype=dt, device=q.device)
     a = _pack_int8(k_entry, v_entry, n_keys, causal, round_pv, out)
-    qb = _query(q, B, H, D)
+    qb = _query(q, B, H, D, dt)
     _on_card(qb, out)
     fresh, bias_ptr = (0, 0, 0, 0), 0
     if causal:
@@ -417,14 +433,17 @@ class Int8AttentionPlan:
     """``decode_attention_int8`` over one generation's int8 caches, with
     what is fixed for the generation checked and packed once: each
     layer's self cache and cross-KV buffers (base pointers, strides, scale
-    rows), the bias table, B, H and ``round_pv``.
+    rows), the bias table, B, H, ``round_pv`` and ``dtype``, the query's
+    and the output's (bfloat16, or float32 for the kernel's f32
+    instance).
 
     ``decode_step`` calls ``causal(i, q, new_k, new_v, step)`` for layer
     i's self block (keys 0..step, key ``step`` from the fresh rows, the
     bias window ``bias_rows[:, L - step - 1:]``) and ``cross(i, q)`` for
     its cross block (keys < ``enc_len``).  On the card a call checks only
-    what moves (q: (B, H, 1, D) bf16 with 16-byte aligned rows; the fresh
-    rows: contiguous, as ``_quantize_kv`` makes them; the step), and makes
+    what moves (q: (B, H, 1, D) of ``dtype`` with 16-byte aligned rows;
+    the fresh rows: contiguous, as ``_quantize_kv`` makes them; the
+    step), and makes
     one C call that sets q, the fresh rows, the bias window and the step
     on the packed argument block and launches on the current stream.  The
     output goes to a buffer of the plan's, one per (layer, block), valid
@@ -437,7 +456,10 @@ class Int8AttentionPlan:
 
     def __init__(self, self_cache: list, bias_rows: torch.Tensor,
                  cross_layers: Optional[list] = None, enc_len: int = 0,
-                 round_pv: bool = True):
+                 round_pv: bool = True, dtype=torch.bfloat16):
+        if dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"launch plan: dtype must be bfloat16 or "
+                             f"float32, got {dtype}")
         k8 = self_cache[0][0][0]
         B, H, L, D = k8.shape
         if L > MAX_KEYS:
@@ -452,6 +474,7 @@ class Int8AttentionPlan:
         # engine's rows are a transposed view, keys 8 floats apart)
         bias_rows = bias_rows.float().contiguous()
         self.device, self.length, self.round_pv = k8.device, L, round_pv
+        self.dtype = dtype
         self._self, self._cross = list(self_cache), list(cross_layers or [])
         self._bias_rows = bias_rows
         self._q_shape = (B, H, 1, D)
@@ -463,7 +486,7 @@ class Int8AttentionPlan:
             self.enc_len = _visible_keys(False, None, enc_len, Lc)
 
         def pack(layers, causal, n_keys, shape):
-            outs = [torch.empty(self._q_shape, dtype=torch.bfloat16,
+            outs = [torch.empty(self._q_shape, dtype=dtype,
                                 device=self.device) for _ in layers]
             args = [_pack_int8(k, v, n_keys, causal, round_pv, o)
                     for (k, v), o in zip(layers, outs)]
@@ -502,16 +525,16 @@ class Int8AttentionPlan:
 
     def _q_strides(self, q: torch.Tensor):
         sq = q.stride()
-        if q.shape != self._q_shape or q.dtype != torch.bfloat16 or \
+        if q.shape != self._q_shape or q.dtype != self.dtype or \
                 not _q_aligned(q, sq) or q.get_device() != self._index:
-            raise ValueError(f"q: needs bfloat16 {self._q_shape} with "
+            raise ValueError(f"q: needs {self.dtype} {self._q_shape} with "
                              f"16-byte aligned rows on {self.device}, got "
                              f"{q.dtype} {tuple(q.shape)} {sq} on {q.device}")
         return sq
 
     def causal(self, i: int, q: torch.Tensor, new_k: Entry, new_v: Entry,
                step: int) -> torch.Tensor:
-        """Layer i's self block at ``step`` -> (B, H, 1, D) bf16."""
+        """Layer i's self block at ``step`` -> (B, H, 1, D) of ``dtype``."""
         if not 0 <= step < self.length:
             raise ValueError(f"step {step} outside the cache length "
                              f"{self.length}")
@@ -537,7 +560,7 @@ class Int8AttentionPlan:
         return self._self_out[i]
 
     def cross(self, i: int, q: torch.Tensor) -> torch.Tensor:
-        """Layer i's cross block -> (B, H, 1, D) bf16."""
+        """Layer i's cross block -> (B, H, 1, D) of ``dtype``."""
         if self.device.type != "cuda":
             k, v = self._cross[i]
             return decode_attention_int8_plain(q, k, v, None, None, None,

@@ -250,6 +250,115 @@ def test_plan_route_equals_public_function_on_card(card):
             round_pv=True), 0.0)
 
 
+def _close_rel(got, ref, bar=1e-5):
+    """f32 outputs: max |diff| over max |ref| within ``bar``."""
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    err = float((got - ref).abs().max()) / float(ref.abs().max())
+    assert err <= bar, err
+
+
+@pytest.mark.parametrize("where", ["causal 31", "causal 127", "causal 1022",
+                                   "cross 190", "cross 150"])
+def test_int8_kernel_f32_instance_matches_plain_on_card(card, where):
+    """A float32 query launches the f32 instance (an fp32 engine with int8
+    KV): f32 output within 1e-5 of the plain version relative to its
+    largest value (only the order of the f32 sums differs), one launch a
+    call, and its launch plan equal to it bit for bit."""
+    route, n = where.split()
+    n = int(n)
+    if route == "causal":
+        q, k, v, kn, vn, bias = _int8_inputs(card, 1024, n)
+        q = q.float() + 1e-3 * torch.randn_like(q, dtype=torch.float32)
+        args = (q, k, v, bias, n, kn, vn, True, 0, True)
+    else:
+        q, k, v = _cross_inputs(card, 190, n)
+        q = q.float() + 1e-3 * torch.randn_like(q, dtype=torch.float32)
+        args = (q, k, v, None, None, None, None, False, n, True)
+    before = da.decode_attention_int8.launches
+    got = da.decode_attention_int8(*args)
+    assert da.decode_attention_int8.launches == before + 1
+    _close_rel(got, da.decode_attention_int8_plain(*args))
+    if route == "causal":
+        L = k[0].shape[2]
+        rows = torch.zeros(8, L, device=card)
+        rows[:, L - n - 1:] = bias[0, :, 0, :n + 1]
+        plan = da.Int8AttentionPlan([(k, v)], rows, dtype=torch.float32)
+        plan_out = plan.causal(0, q, kn, vn, n)
+    else:
+        rows = torch.zeros(8, k[0].shape[2], device=card)
+        plan = da.Int8AttentionPlan([(k, v)], rows, [(k, v)], enc_len=n,
+                                    dtype=torch.float32)
+        plan_out = plan.cross(0, q)
+    torch.cuda.synchronize()
+    assert torch.equal(plan_out, got)
+
+
+@pytest.mark.parametrize("round_pv", [False, True])
+@pytest.mark.parametrize("where", ["causal 127", "causal 1022", "cross 190"])
+def test_int8_kernel_on_4bit_entries_matches_plain_on_card(card, where,
+                                                           round_pv):
+    """``kv_bits=4`` caches (+-7 levels stored in int8) through the same
+    kernel: 2e-2 against the plain version on the bf16 outputs."""
+    route, n = where.split()
+    n = int(n)
+    g = torch.Generator().manual_seed(n)
+
+    def q4(*shape):
+        return _quantize_kv(torch.randn(*shape, generator=g).to(card), 4)
+
+    B, H, D = 64, 8, 64
+    q = torch.randn(B, H, 1, D, generator=g).to(card, torch.bfloat16)
+    k, v = q4(B, H, 1024 if route == "causal" else n, D), \
+        q4(B, H, 1024 if route == "causal" else n, D)
+    assert int(k[0].abs().max()) == 7
+    if route == "causal":
+        bias = torch.randn(1, H, 1, 1024, generator=g).to(card)
+        args = (q, k, v, bias, n, q4(B, H, 1, D), q4(B, H, 1, D), True, 0,
+                round_pv)
+    else:
+        args = (q, k, v, None, None, None, None, False, n, round_pv)
+    _close(da.decode_attention_int8(*args),
+           da.decode_attention_int8_plain(*args))
+
+
+@pytest.mark.parametrize("option", ["int8_weights", "kv_bits=4", "unroll=8",
+                                    "fp32 int8_kv"])
+def test_engine_options_launch_the_kernel(card, option):
+    """Each decode option of the engine on the calibration fixture runs
+    the int8 kernel in all 12 attention blocks of every step it runs (the
+    fp32 engine through its f32 instance; ``unroll=8`` runs on to the next
+    multiple of 8 steps), with tokens out; ``unroll=8`` gives the tokens
+    of ``unroll=1``."""
+    from music2midi_tpu_torch.audio import resample
+    from music2midi_tpu_torch.calibration import render_fixture
+    from music2midi_tpu_torch.infer import Music2MIDI
+
+    wav, sr = render_fixture()
+    dtype = torch.float32 if option.startswith("fp32") else torch.bfloat16
+    engine = Music2MIDI.from_npz(RECORD, dtype=dtype)
+    chunks = engine._chunk_waveform(resample(wav, sr, 16000))
+    base = engine.sample_tokens_batched(chunks) if option == "unroll=8" \
+        else None
+    if option == "int8_weights":
+        engine.int8_weights = True
+    elif option == "kv_bits=4":
+        engine.kv_bits = 4
+    elif option == "unroll=8":
+        engine.unroll = 8
+    else:
+        engine.int8_kv = True
+    before = da.decode_attention_int8.launches
+    tokens = engine.sample_tokens_batched(chunks)
+    steps = engine.last_decode_stats[0]["steps"]
+    run = min(-(-steps // engine.unroll) * engine.unroll,
+              engine.decode_max_length - 1)
+    assert da.decode_attention_int8.launches - before == 12 * run
+    assert all(len(t) > 1 for t in tokens)
+    if base is not None:
+        assert all(np.array_equal(a, b) for a, b in zip(tokens, base))
+
+
 @pytest.mark.parametrize("batch,n_samples,n_fft,hop", [
     (64, 48000, 2048, 256), (1, 41234, 2048, 256), (128, 48000, 2048, 256),
     (3, 33000, 2048, 256), (5, 40000, 256, 128), (5, 40000, 512, 128),

@@ -8,7 +8,8 @@ no ml_dtypes and no yaml; and the JAX package itself needs yaml at import
     ``chip_smoke.py`` finds no import of those packages or of
     ``music2midi_tpu``;
   * a subprocess in which importing any of them raises imports every port
-    module and ``chip_smoke``, then runs the calibration fixture through
+    module (``bench``, ``profiling`` and ``models.convert`` among them)
+    and ``chip_smoke``, then runs the calibration fixture through
     ``Music2MIDI.from_npz(model_of_record, device="cpu")`` in fp32 through
     ``generate`` and through ``generate_batch``: the pinned ``check_midi``
     gate must pass, and the two must give the same notes.
@@ -45,6 +46,8 @@ def _imported_roots(path: Path):
 def test_port_sources_import_no_blocked_package():
     files = _port_files()
     assert len(files) > 10, files
+    for name in ("bench.py", "profiling.py", "models/convert.py"):
+        assert PKG / name in files
     bad = [
         f"{p.relative_to(ROOT)}:{line} imports {root}"
         for p in files for root, line in _imported_roots(p)
@@ -104,6 +107,8 @@ def test_port_runs_with_the_card_machines_packages_only():
     assert "music2midi_tpu_torch.ops.mel_cuda" in res["modules"]
     assert "music2midi_tpu_torch.infer.pipeline" in res["modules"]
     assert "music2midi_tpu_torch.ops.decode_attention" in res["modules"]
+    for name in ("bench", "profiling", "models.convert"):
+        assert f"music2midi_tpu_torch.{name}" in res["modules"]
     assert res["leaked"] == []
     assert res["ok"], res["detail"]
     assert res["batch_same"]
