@@ -70,11 +70,30 @@ and exits non-zero, and nothing is caught and passed over:
      songs, 1 group of 1 trial and 1 latency trial, then its secondary
      forced-256 run on the same songs: songs/min, p50 latency, ``mfu``
      (required non-null on an H100), ``mfu_executed``, tokens, notes;
-  11. the ``kernels`` JSON line.
+  11. training (``music2midi_tpu_torch.train``, no kernel on its path: the
+     JAX trainer runs outside Pallas, and the counts of all four kernels
+     must stay 0): a corpus of 4 synthetic 30-s songs written as the
+     data-prep chain writes one (the train split lists each song 16 times,
+     so an epoch holds 4 batches of 16 random 3-s windows), read through
+     the port's dataset and loader with augmentation on (spawned workers);
+     one fp32 step from the model of record with dropout 0 on the card
+     and on the CPU (loss within 1e-4 relative, update cosine >= 0.999;
+     fp32 matmuls without TF32, PyTorch's default); 3 warm-up and 20
+     timed steps in fp32 and in bf16 mixed precision with dropout 0.1 and
+     the reference's relative-step schedule (median step ms by host clock
+     around steps that end in a synchronize, tokens/s, ``mfu`` against
+     the bf16 peak, peak memory, first and last loss); a checkpoint saved
+     and restored bit-equal; the bf16 npz export served by
+     ``Music2MIDI.from_npz`` through the calibration gate; and the train
+     CLI (``python3 -m music2midi_tpu_torch.train``'s ``main``) for 4
+     bf16 steps from the model of record with ``--eval_in_train``;
+  12. the ``kernels`` JSON line.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-Only ``nvcc`` and ``nvidia-smi`` are started as subprocesses; no threads.
+Only ``nvcc`` and ``nvidia-smi`` are started as subprocesses, and the
+training phase's loaders spawn their worker processes, each pool shut
+down when its epoch ends; no threads.
 """
 
 from __future__ import annotations
@@ -259,12 +278,10 @@ def attention_bound(B: int, H: int, D: int, n: int, causal: bool,
     return _bound(nbytes, 4 * B * H * n * D)
 
 
-def synthetic_song(seconds: float, sr: int, seed: int):
-    """A piano-like song from the port's synthesizer: random chords and
-    melody notes, made from `seed`."""
+def synthetic_notes(seconds: float, seed: int):
+    """(N, 4) notes of a piano-like song: random chords and melody notes
+    every 0.25-0.75 s, made from `seed`."""
     import numpy as np
-
-    from music2midi_tpu_torch.utils import numpy_to_midi
 
     rng = np.random.default_rng(seed)
     notes = []
@@ -276,10 +293,255 @@ def synthetic_song(seconds: float, sr: int, seed: int):
             notes.append([t, min(t + dur, seconds), int(p),
                           int(rng.integers(60, 110))])
         t += float(rng.choice([0.25, 0.5, 0.75]))
-    wave = numpy_to_midi(np.array(notes)).synthesize(fs=sr)
+    return np.array(notes)
+
+
+def synthetic_song(seconds: float, sr: int, seed: int, notes=None):
+    """The song of ``synthetic_notes(seconds, seed)`` (or of `notes`)
+    through the port's synthesizer, peak 0.8."""
+    import numpy as np
+
+    from music2midi_tpu_torch.utils import numpy_to_midi
+
+    if notes is None:
+        notes = synthetic_notes(seconds, seed)
+    wave = numpy_to_midi(notes).synthesize(fs=sr)
     out = np.zeros(int(seconds * sr), np.float32)
     out[:min(len(out), len(wave))] = wave[:len(out)]
     return out / max(1e-6, float(np.abs(out).max())) * 0.8
+
+
+TRAIN_SR, TRAIN_SONG_S, TRAIN_SONGS, TRAIN_REPEATS = 22050, 30.0, 4, 16
+TRAIN_STEPS, TRAIN_WARMUP = 20, 3  # timed steps in each mode, after warm-up
+CARD = "cuda"  # the device under test
+
+
+def write_training_corpus(root: Path, seed: int = 0) -> list:
+    """A prepared corpus as ``data/synthesize_corpus.py`` lays one out:
+    ``audio/{id}.wav`` (22050 Hz), ``midi_numpy/{id}.npy``,
+    ``metadata/{id}.yaml`` and ``dataset_split.npz``; songs of random
+    chords (``synthetic_notes``) through the port's synthesizer, made
+    from `seed`.  The train
+    split lists every song TRAIN_REPEATS times, so that one epoch holds
+    whole batches of 16 random windows.  -> the song ids."""
+    import numpy as np
+
+    from music2midi_tpu_torch.audio import write_wav
+    from music2midi_tpu_torch.config import default_config
+
+    cond = default_config().conditioning
+    rng = np.random.default_rng(seed)
+    for d in ("audio", "midi_numpy", "metadata"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    ids = [f"song{i:02d}" for i in range(TRAIN_SONGS)]
+    for i, pid in enumerate(ids):
+        notes = synthetic_notes(TRAIN_SONG_S, seed * 1000 + i)
+        write_wav(root / "audio" / f"{pid}.wav",
+                  synthetic_song(TRAIN_SONG_S, TRAIN_SR, 0, notes), TRAIN_SR)
+        np.save(root / "midi_numpy" / f"{pid}.npy", notes)
+        (root / "metadata" / f"{pid}.yaml").write_text(
+            f"piano:\n  difficulty: "
+            f"{cond.difficulty[int(rng.integers(3))]}\n"
+            f"  genre: {cond.genre[int(rng.integers(6))]}\n  id: {pid}\n")
+    np.savez(root / "dataset_split.npz",
+             train_id=np.array(ids * TRAIN_REPEATS), val_id=np.array(ids),
+             test_id=np.array(ids))
+    return ids
+
+
+def training_phase(smi: str, launches_of, check_midi, fixture_path: str
+                   ) -> str:
+    """The training path on the card; see the module docstring, item 11.
+    -> the phase's info; raises on any failure."""
+    import numpy as np
+    import torch
+
+    from music2midi_tpu_torch.config import ConfigNode, default_config
+    from music2midi_tpu_torch.data import DataLoader, Music2MIDIDataset
+    from music2midi_tpu_torch.infer import Music2MIDI
+    from music2midi_tpu_torch.models.t5 import t5_config_from
+    from music2midi_tpu_torch.ops.mel import log_mel_config_from, num_frames
+    from music2midi_tpu_torch.profiling import (
+        device_peak_flops,
+        train_step_flops,
+    )
+    from music2midi_tpu_torch.train import Adafactor, make_train_step
+    from music2midi_tpu_torch.train.__main__ import main as train_main
+    from music2midi_tpu_torch.train.checkpoint import (
+        restore_train_state,
+        save_params_npz,
+        save_train_state,
+    )
+    from music2midi_tpu_torch.train.loop import TrainState, trainable_model
+    from music2midi_tpu_torch.weights import load_npz
+
+    record_sd, record_cfg = load_npz(RECORD)
+    config = ConfigNode({**default_config().to_dict(),
+                         "model": record_cfg.model.to_dict()})
+    mel_cfg = log_mel_config_from(config)
+    lines = []
+    with tempfile.TemporaryDirectory() as td:
+        root = Path(td) / "corpus"
+        ids = write_training_corpus(root)
+        split = np.load(root / "dataset_split.npz")
+        dataset = Music2MIDIDataset(root, split["train_id"], config)
+        loader = DataLoader(dataset, batch_size=16, num_workers=4,
+                            shuffle=True, seed=0)
+        require(loader.use_processes, "augmenting loader not on processes")
+        (batches, n), load_s = timed_s(lambda: launches_of(
+            lambda: list(loader)))
+        B, S = batches[0].waveform.shape
+        require(len(batches) == len(split["train_id"]) // 16
+                and S == int(3 * TRAIN_SR), f"loader gave {len(batches)} "
+                f"batches of {batches[0].waveform.shape}")
+        enc_len = num_frames(S, mel_cfg) + len(config.conditioning)
+        require(enc_len == 261, f"encoder length {enc_len}")
+        rng = np.random.default_rng(1)
+        _, item_s = timed_s(lambda: [dataset.__getitem__(i, rng)
+                                     for i in range(16)])
+        lines.append(
+            f"corpus: {len(ids)} songs x {TRAIN_SONG_S:.0f} s at "
+            f"{TRAIN_SR} Hz; loader (augment on, 4 spawned workers, their "
+            f"start-up included): {len(batches) * B} windows in "
+            f"{load_s:.3f} s = {len(batches) * B / load_s:.1f} windows/s; "
+            f"one process: 16 windows in {item_s:.3f} s = "
+            f"{16 / item_s:.1f} windows/s; batch "
+            f"{batches[0].waveform.shape}, labels "
+            f"{[b.labels.shape[1] for b in batches]}")
+
+        def state_on(device, dtype, dropout, lr=None):
+            cfg = t5_config_from(config, dtype)._replace(dropout_rate=dropout)
+            model = trainable_model(record_sd, cfg, device)
+            opt = Adafactor(list(model.parameters()), lr=lr,
+                            warmup_init=lr is None)
+            return cfg, TrainState(model, opt)
+
+        # card vs CPU: one fp32 step, dropout 0, on the same batch; a fixed
+        # lr, since the relative step's first lr (1e-6 x RMS) moves a
+        # parameter by a few ulps, below what a cosine can resolve
+        loss, update = {}, {}
+        for dev in (CARD, "cpu"):
+            cfg, st = state_on(dev, torch.float32, 0.0, lr=1e-2)
+            before = torch.cat([p.detach().flatten().double().cpu()
+                                for p in st.model.parameters()])
+            _, l = make_train_step(cfg, mel_cfg)(st, batches[0], 0)
+            loss[dev] = float(l)
+            update[dev] = torch.cat([p.detach().flatten().double().cpu()
+                                     for p in st.model.parameters()]) - before
+        rel = abs(loss[CARD] - loss["cpu"]) / abs(loss["cpu"])
+        cos = float(torch.nn.functional.cosine_similarity(
+            update[CARD], update["cpu"], dim=0))
+        require(np.isfinite(loss[CARD]) and rel <= 1e-4,
+                f"train step loss card {loss[CARD]} vs cpu {loss['cpu']}")
+        require(cos >= 0.999, f"update cosine card vs cpu {cos}")
+        lines.append(
+            f"card_vs_cpu (fp32, dropout 0, lr 1e-2, no TF32): loss "
+            f"{loss[CARD]:.7f} vs {loss['cpu']:.7f} rel {rel:.3e} "
+            f"(bar 1e-4), update cosine {cos:.7f} (bar 0.999)")
+
+        peak = device_peak_flops()
+        states = {}
+        for mode, dtype in (("fp32", torch.float32),
+                            ("bf16", torch.bfloat16)):
+            cfg, st = state_on(CARD, dtype, 0.1)
+            step = make_train_step(cfg, mel_cfg)
+            torch.cuda.reset_peak_memory_stats()
+            times, losses = [], []
+
+            def run():
+                for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+                    (_, l), dt = timed_s(
+                        lambda: step(st, batches[i % len(batches)], 0))
+                    times.append(dt)
+                    losses.append(float(l))
+
+            _, n = launches_of(run)
+            require(not any(n.values()),
+                    f"{mode} training launched a kernel: {n}")
+            require(all(np.isfinite(losses)), f"{mode} losses {losses}")
+            timed = times[TRAIN_WARMUP:]
+            med = float(np.median(timed))
+            dec = [b.labels.shape[1] for b in batches]
+            tokens = float(np.mean([B * (enc_len + d) for d in dec]))
+            flops = float(np.mean([train_step_flops(cfg, B, enc_len, d)
+                                   for d in dec]))
+            mfu = flops / med / peak if peak else None
+            mem = torch.cuda.max_memory_allocated()
+            states[mode] = (cfg, st)
+            lines.append(
+                f"{mode}: {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up, "
+                f"median step_ms="
+                f"{med * 1e3:.3f} (min {min(timed) * 1e3:.3f}, max "
+                f"{max(timed) * 1e3:.3f}) tokens_per_s={tokens / med:.1f} "
+                f"(B={B} x (enc {enc_len} + dec {dec})) "
+                f"train_step_flops={flops:.4g} mfu={mfu} (against the "
+                f"{peak} bf16 peak) peak_memory_bytes={mem} loss first="
+                f"{losses[0]:.6f} last={losses[-1]:.6f} launches={n} [{smi}]")
+
+        # checkpoint: save, restore into a fresh state, bit-equal
+        cfg, st = states["bf16"]
+        ck = save_train_state(Path(td) / "ckpt", st, config)
+        _, fresh = state_on(CARD, torch.bfloat16, 0.1)
+        fresh, _ = restore_train_state(Path(td) / "ckpt", fresh)
+        require(fresh.step == st.step == TRAIN_WARMUP + TRAIN_STEPS,
+                f"restored step {fresh.step}")
+        for (k, a), b in zip(st.model.state_dict().items(),
+                             fresh.model.state_dict().values()):
+            require(torch.equal(a, b), f"restored parameter {k} differs")
+        n_moments = 0
+        for a, b in zip(st.optimizer.state.values(),
+                        fresh.optimizer.state.values()):
+            require(a["step"] == b["step"], "restored optimizer step")
+            for k in ("row", "col", "v"):
+                if k in a:
+                    require(b[k].dtype == torch.float32
+                            and torch.equal(a[k], b[k]),
+                            f"restored moment {k} differs")
+                    n_moments += 1
+        export = Path(td) / "trained.npz"
+        save_params_npz(export, st.model.state_dict(), config,
+                        dtype="bfloat16")
+        lines.append(f"checkpoint {ck.name}: parameters and {n_moments} "
+                     f"moments restored bit-equal; export "
+                     f"{export.stat().st_size} bytes (bf16)")
+
+        # serve the export on the card through the calibration gate
+        engine = Music2MIDI.from_npz(export, dtype=torch.bfloat16,
+                                     device=CARD)
+        require(engine.device.type == CARD, "engine not on the card")
+        midi, n = launches_of(lambda: engine.generate(audio_path=fixture_path))
+        ok, detail = check_midi(midi)
+        require(ok, f"the exported npz fails the calibration gate: {detail}")
+        lines.append(f"served export (bf16): calibration gate ok, {detail}, "
+                     f"launches={n}")
+
+        # the CLI, from the model of record, 4 bf16 steps
+        cfg_json = Path(td) / "config.json"
+        cli_cfg = config.to_dict()
+        cli_cfg["trainer"]["log_every_n_steps"] = 2
+        cfg_json.write_text(json.dumps(cli_cfg))
+        out = Path(td) / "runs"
+        (_, n), cli_s = timed_s(lambda: launches_of(lambda: train_main([
+            str(root), "--init_from", str(RECORD), "--config", str(cfg_json),
+            "--out_dir", str(out), "--name", "smoke", "--max_steps", "4",
+            "--dtype", "bfloat16", "--eval_in_train", "--device", CARD])))
+        records = [json.loads(x) for x in
+                   (out / "smoke" / "log.jsonl").read_text().splitlines()]
+        cli_losses = [r["train/loss"] for r in records if "train/loss" in r]
+        require(len(cli_losses) == 2 and all(np.isfinite(cli_losses)),
+                f"CLI log {records}")
+        require((out / "smoke" / "ckpt" / "step_00000004" / "state.pt")
+                .exists(), "CLI checkpoint step_00000004 missing")
+        require(not any(n.values()), f"the CLI launched a kernel: {n}")
+        lines.append(
+            f"cli: 4 bf16 steps in {cli_s:.3f} s (loader, validation, "
+            f"checkpoints and eval_in_train included): train/loss "
+            f"{cli_losses}, train/score "
+            f"{[r['train/score'] for r in records if 'train/score' in r]}, "
+            f"val/loss {[r['val/loss'] for r in records if 'val/loss' in r]}")
+    for line in lines:
+        print(f"  {line}", flush=True)
+    return f"{len(lines)} checks [{smi}]"
 
 
 def int8_attention_inputs(L: int, causal: bool, n_sets: int,
@@ -1008,6 +1270,11 @@ def main() -> int:
             f"{sec['songs_per_min']:.3f} p50_song_latency_s="
             f"{sec['lat_sorted'][0]:.4f} mfu={sec_mfu} "
             f"[{smi}]")
+
+    with Phase("training") as ph, tempfile.TemporaryDirectory() as td:
+        path = str(Path(td) / "a4_22050.wav")
+        write_wav(path, fixture, fixture_sr)
+        ph.info = training_phase(smi, launches_of, check_midi, path)
 
     with Phase("kernels"):
         print(json.dumps({"kernels": [

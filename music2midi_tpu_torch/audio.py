@@ -1,8 +1,9 @@
 """Waveform I/O and resampling.
 
 The port's own copy of ``music2midi_tpu/audio.py`` for WAV: RIFF/WAVE
-reading (PCM 8/16/24/32 and float32/64), 16-bit writing, and polyphase
-windowed-sinc resampling (scipy.signal.resample_poly, Kaiser beta 14.77).
+reading (PCM 8/16/24/32 and float32/64), 16-bit writing, polyphase
+windowed-sinc resampling (scipy.signal.resample_poly, Kaiser beta 14.77),
+``get_duration`` and peak ``normalize``.
 Other containers (decoded through an ``ffmpeg`` subprocess in the JAX
 package) are not supported here: pass a ``.wav``.
 """
@@ -136,3 +137,20 @@ def load(
         x = resample(x, native_sr, sr)
         native_sr = sr
     return x.astype(np.float32), native_sr
+
+
+def get_duration(path: Union[str, Path]) -> float:
+    """Duration in seconds of a WAV file."""
+    path = Path(path)
+    if path.suffix.lower() != ".wav":
+        raise ValueError(f"cannot decode {path.suffix}: provide a .wav")
+    x, sr = read_wav(path)
+    return x.shape[1] / sr
+
+
+def normalize(x: np.ndarray) -> np.ndarray:
+    """Peak normalization (librosa.util.normalize default: max |x| -> 1)."""
+    peak = np.max(np.abs(x))
+    if peak == 0:
+        return x
+    return (x / peak).astype(np.float32)

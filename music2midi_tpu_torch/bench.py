@@ -35,8 +35,9 @@ unknown (a CPU, or a card outside ``profiling.PEAK_FLOPS_BF16``).
 
 ``--device cpu`` runs the same code on the CPU (the tests do, at a tiny
 size); a CPU number is no card metric.  ``--config`` takes the JSON of an
-npz ``__config__`` (the card's machine has no yaml).  An orbax
-checkpoint directory raises: the port does not read them.
+npz ``__config__`` (the card's machine has no yaml).  A checkpoint
+directory is read as one of the port's trainer (``from_checkpoint``); an
+orbax directory is not readable here.
 """
 
 from __future__ import annotations
@@ -128,7 +129,7 @@ def _load_engine(args, trained: bool):
         elif p.suffix == ".npz":
             engine = Music2MIDI.from_npz(p, config, **kw)
         else:
-            engine = Music2MIDI.from_orbax(p, config, **kw)
+            engine = Music2MIDI.from_checkpoint(p, config, **kw)
     else:
         engine = Music2MIDI.from_random(
             seed=0, decode_max_length=args.max_decode or DECODE_TOKENS, **kw)

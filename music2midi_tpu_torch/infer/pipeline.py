@@ -26,8 +26,10 @@ engine's knobs are attributes with its names and defaults:
 Everything runs on ``device`` (``cuda`` unless the caller passes
 ``device="cpu"``); no threads are started.  Checkpoints: the npz export
 (``from_npz``) and the reference's Lightning ``.ckpt``
-(``from_torch_checkpoint``); an orbax directory needs orbax, which the
-port does not use (``from_orbax`` raises).
+(``from_torch_checkpoint``), and the port's own training checkpoints and
+exports (``from_checkpoint``, through ``weights.py::restore_params``); an
+orbax directory needs orbax, which the port does not use (``from_orbax``
+raises).
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ from ..ops.mel import (
 )
 from ..tokenizer import MidiTokenizer
 from ..utils import numpy_to_midi
-from ..weights import load_npz
+from ..weights import load_npz, restore_params
 from .decode import DecodeConfig, generate_tokens
 
 _BUCKET_SIZES = (8, 16, 32, 64, 128)
@@ -197,15 +199,29 @@ class Music2MIDI:
         return cls(params, cfg, **kw)
 
     @classmethod
+    def from_checkpoint(cls, path: Union[str, Path],
+                        config: Optional[Union[ConfigNode, dict]] = None,
+                        **kw) -> "Music2MIDI":
+        """Load anything ``weights.py::restore_params`` reads: an
+        npz export (from either package), a ``save_params`` directory, or
+        a training checkpoint of the port (a step directory, or a training
+        root taking its latest step); the port's counterpart of the JAX
+        engine's ``from_orbax``."""
+        params, saved_cfg = restore_params(path)
+        return cls(params, config if config is not None else saved_cfg, **kw)
+
+    @classmethod
     def from_orbax(cls, ckpt_dir: Union[str, Path], *args,
                    **kw) -> "Music2MIDI":
         """An orbax checkpoint directory: not readable here.  It needs
         orbax, which the port does not use; export the weights with
-        ``tools/export_npz.py`` and load them with ``from_npz``."""
+        ``tools/export_npz.py`` and load them with ``from_npz``, or load a
+        checkpoint of the port's trainer with ``from_checkpoint``."""
         raise NotImplementedError(
             f"{ckpt_dir}: orbax checkpoint directories need orbax, which the "
             "PyTorch port does not use; export an npz (tools/export_npz.py) "
-            "and load it with Music2MIDI.from_npz")
+            "and load it with Music2MIDI.from_npz, or load a checkpoint of "
+            "the port's trainer with Music2MIDI.from_checkpoint")
 
     @classmethod
     def from_random(cls, config: Optional[Union[ConfigNode, dict]] = None,

@@ -2,18 +2,20 @@
 synthesizer.
 
 The port's own copy of the parts of ``music2midi_tpu/midi.py`` that the
-serving path needs (pure numpy and ``struct``): Note / Instrument /
-MidiFile containers for one constant tempo, ``write`` (SMF format 1,
-byte-identical to the JAX package's writer for the same notes) and
-``synthesize`` with pretty_midi's documented semantics.  The SMF reader,
-piano roll, beats, pitch bends and control changes are not ported yet.
+serving path and the evaluation need (pure numpy and ``struct``): Note /
+Instrument / MidiFile containers for one constant tempo, ``write`` (SMF
+format 1, byte-identical to the JAX package's writer for the same notes),
+``synthesize`` and ``get_piano_roll`` with pretty_midi's documented
+semantics.  The containers hold notes only: the SMF reader, beats, pitch
+bends and control changes (and so the roll's sustain pedal and bends) are
+not ported yet.
 """
 
 from __future__ import annotations
 
 import struct
 from pathlib import Path
-from typing import List, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -47,6 +49,43 @@ class Instrument:
     def remove_invalid_notes(self) -> None:
         self.notes = [n for n in self.notes if n.end > n.start]
 
+    def get_piano_roll(self, fs: int = 100,
+                       times: Optional[np.ndarray] = None) -> np.ndarray:
+        """Velocity piano roll with pretty_midi Instrument.get_piano_roll
+        semantics (the reference consumes pretty_midi's defaults at
+        music2midi/evaluation.py:34-35): notes stamped as velocity over
+        [int(start*fs), int(end*fs)); drum instruments produce zeros; with
+        ``times``, column n is the mean over [round(times[n]*fs),
+        round(times[n+1]*fs)) and the final column stays zero, exactly like
+        pretty_midi."""
+        if not self.notes:
+            return np.zeros((128, 0))
+        end_time = self.get_end_time()
+        if times is not None and len(times) and times[-1] > end_time:
+            end_time = float(times[-1])
+        roll = np.zeros((128, int(fs * end_time)))
+        if not self.is_drum:
+            for note in self.notes:
+                roll[note.pitch, int(note.start * fs):int(note.end * fs)] += (
+                    note.velocity
+                )
+        return roll if times is None else _integrate_roll(roll, fs, times)
+
+
+def _integrate_roll(roll: np.ndarray, fs: int, times: np.ndarray) -> np.ndarray:
+    """pretty_midi semantics for get_piano_roll(times=...): column n is the
+    mean of roll columns in [round(times[n]*fs), round(times[n+1]*fs));
+    the final column is left zero (pretty_midi iterates pairs only)."""
+    times = np.array(np.round(np.asarray(times) * fs), dtype=np.int64)
+    out = np.zeros((roll.shape[0], times.shape[0]))
+    for n in range(len(times) - 1):
+        start, end = times[n], times[n + 1]
+        if start < roll.shape[1]:
+            if start == end:
+                end = start + 1
+            out[:, n] = np.mean(roll[:, start:end], axis=1)
+    return out
+
 
 class MidiFile:
     """In-memory MIDI: instruments with absolute-seconds notes at one
@@ -63,6 +102,22 @@ class MidiFile:
     def remove_invalid_notes(self) -> None:
         for inst in self.instruments:
             inst.remove_invalid_notes()
+
+    def get_piano_roll(self, fs: int = 100,
+                       times: Optional[np.ndarray] = None) -> np.ndarray:
+        """Sum of instrument rolls, padded to the longest (pretty_midi
+        PrettyMIDI.get_piano_roll).  With ``times`` the result always has
+        len(times) columns, even when every instrument is empty, as the JAX
+        package's does (pretty_midi returns (128, 0) there)."""
+        n_cols = 0 if times is None else len(times)
+        rolls = [inst.get_piano_roll(fs=fs, times=times)
+                 for inst in self.instruments]
+        if rolls:
+            n_cols = max(n_cols, max(r.shape[1] for r in rolls))
+        out = np.zeros((128, n_cols))
+        for r in rolls:
+            out[:, : r.shape[1]] += r
+        return out
 
     def synthesize(self, fs: int = 44100) -> np.ndarray:
         """Additive-sine rendering (pretty_midi.synthesize analogue): each

@@ -11,6 +11,16 @@ layout of the JAX package: projections are (in, out) and apply as
 ``x @ w``.  The forward passes are plain functions over that module and a
 ``T5Config`` that names the compute dtype, as in the JAX package.
 
+Training (``t5_forward``, ``shift_right``, ``cross_entropy_loss``) runs
+the same ``encode`` and ``decoder_forward`` with dropout at the JAX
+package's sites: the input embeddings, the attention probabilities, each
+residual branch, the MLP hidden layer and each stack's final norm output.
+The masks are drawn from an explicit ``torch.Generator`` on the model's
+device, so they are held to their distribution and to one seed giving one
+mask, not to JAX's random bits.  The forward passes record autograd
+graphs when the parameters require grad; the serving callers wrap them in
+``torch.no_grad`` (``infer/pipeline.py``, ``infer/decode.py``).
+
 Matmuls follow the JAX package's precision: projections multiply in the
 compute dtype (fp32 accumulation, output rounded to the compute dtype);
 attention scores and the probability-weighted sums are accumulated and
@@ -166,7 +176,9 @@ class T5Model(nn.Module):
     def from_state_dict(cls, sd: Dict[str, torch.Tensor], cfg: T5Config
                         ) -> "T5Model":
         """Build around the given tensors (their dtypes are kept: a bf16
-        checkpoint stays bf16, as the JAX engine keeps it)."""
+        checkpoint stays bf16, as the JAX engine keeps it).  The parameters
+        do not require grad (``train/loop.py::trainable_model`` builds
+        the trainer's float32 masters that do)."""
         n_cond = []
         while f"conditioning.{len(n_cond)}" in sd:
             n_cond.append(sd[f"conditioning.{len(n_cond)}"].shape[0])
@@ -340,13 +352,29 @@ def _proj(x: torch.Tensor, w, dtype) -> torch.Tensor:
     return torch.matmul(x.to(dtype), w.to(dtype))
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: each entry kept with probability ``1 - rate``
+    (a uniform draw from ``generator`` below it) and scaled by
+    ``1 / (1 - rate)`` in x's dtype; the identity when ``generator`` is
+    None (deterministic) or ``rate`` is 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < (1.0 - rate)
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
 def attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias: Optional[torch.Tensor],  # broadcastable to (B, H, Q, K)
     mask: Optional[torch.Tensor],  # broadcastable, True = keep
     dtype,
+    generator: Optional[torch.Generator] = None,
+    dropout_rate: float = 0.0,
 ) -> torch.Tensor:
-    """T5 attention: scores = q @ k^T (NO 1/sqrt(d)) + bias, fp32 softmax."""
+    """T5 attention: scores = q @ k^T (NO 1/sqrt(d)) + bias, fp32 softmax;
+    in training, dropout on the probabilities (HF T5's site)."""
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if bias is not None:
         scores = scores + bias.float()
@@ -354,22 +382,27 @@ def attention(
         scores = torch.where(mask, scores, torch.tensor(-1e9, dtype=torch.float32,
                                                         device=scores.device))
     probs = torch.softmax(scores, dim=-1).to(dtype)
+    probs = dropout(probs, dropout_rate, generator)
     return torch.matmul(probs.float(), v.float()).to(dtype)
 
 
-def self_attention_block(p: Attention, x, bias, mask, cfg: T5Config):
+def self_attention_block(p: Attention, x, bias, mask, cfg: T5Config,
+                         generator: Optional[torch.Generator] = None):
     q = _split_heads(_proj(x, p.q, cfg.dtype), cfg.num_heads, cfg.d_kv)
     k = _split_heads(_proj(x, p.k, cfg.dtype), cfg.num_heads, cfg.d_kv)
     v = _split_heads(_proj(x, p.v, cfg.dtype), cfg.num_heads, cfg.d_kv)
-    out = attention(q, k, v, bias, mask, cfg.dtype)
+    out = attention(q, k, v, bias, mask, cfg.dtype, generator,
+                    cfg.dropout_rate)
     return _proj(_merge_heads(out), p.o, cfg.dtype)
 
 
-def mlp_block(p: MLP, x, cfg: T5Config):
-    """Gated-GELU FFN: wo(gelu_new(wi_0 x) * (wi_1 x))."""
+def mlp_block(p: MLP, x, cfg: T5Config,
+              generator: Optional[torch.Generator] = None):
+    """Gated-GELU FFN: wo(dropout(gelu_new(wi_0 x) * (wi_1 x)))."""
     gate = gelu_new(_proj(x, p.wi_0, cfg.dtype))
     lin = _proj(x, p.wi_1, cfg.dtype)
-    return _proj(gate * lin, p.wo, cfg.dtype)
+    return _proj(dropout(gate * lin, cfg.dropout_rate, generator), p.wo,
+                 cfg.dtype)
 
 
 # --------------------------------------------------------------------- #
@@ -377,11 +410,24 @@ def mlp_block(p: MLP, x, cfg: T5Config):
 # --------------------------------------------------------------------- #
 
 
-@torch.no_grad()
-def encode(model: T5Model, inputs_embeds: torch.Tensor, cfg: T5Config
-           ) -> torch.Tensor:
-    """Encoder stack over inputs_embeds (B, L, d_model) (inference: no
-    dropout)."""
+def _train_generator(deterministic: bool, generator, cfg: T5Config):
+    """The generator the dropout sites draw from: None when deterministic
+    or at rate 0; a training pass with dropout needs one."""
+    if deterministic or cfg.dropout_rate == 0.0:
+        return None
+    if generator is None:
+        raise ValueError("dropout needs a torch.Generator "
+                         "(or deterministic=True)")
+    return generator
+
+
+def encode(model: T5Model, inputs_embeds: torch.Tensor, cfg: T5Config,
+           deterministic: bool = True,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Encoder stack over inputs_embeds (B, L, d_model); with
+    ``deterministic=False`` dropout draws from ``generator``."""
+    gen = _train_generator(deterministic, generator, cfg)
+    rate = cfg.dropout_rate
     enc = model.encoder
     L = inputs_embeds.shape[1]
     pos = torch.arange(L, device=inputs_embeds.device)
@@ -389,34 +435,45 @@ def encode(model: T5Model, inputs_embeds: torch.Tensor, cfg: T5Config
         enc.rel_bias, pos, pos, True, cfg.relative_attention_num_buckets,
         cfg.relative_attention_max_distance,
     )[None]
-    x = inputs_embeds.to(cfg.dtype)
+    x = dropout(inputs_embeds.to(cfg.dtype), rate, gen)
     for layer in enc.layers:
         h = rms_norm(x, layer.ln1, cfg.layer_norm_epsilon)
-        x = x + self_attention_block(layer.self_attn, h, bias, None, cfg)
+        h = self_attention_block(layer.self_attn, h, bias, None, cfg, gen)
+        x = x + dropout(h, rate, gen)
         h = rms_norm(x, layer.ln2, cfg.layer_norm_epsilon)
-        x = x + mlp_block(layer.mlp, h, cfg)
-    return rms_norm(x, enc.final_ln, cfg.layer_norm_epsilon)
+        x = x + dropout(mlp_block(layer.mlp, h, cfg, gen), rate, gen)
+    return dropout(rms_norm(x, enc.final_ln, cfg.layer_norm_epsilon), rate,
+                   gen)
 
 
-@torch.no_grad()
 def decoder_forward(
     model: T5Model, decoder_input_ids: torch.Tensor,
     encoder_hidden: torch.Tensor, cfg: T5Config,
+    decoder_attention_mask: Optional[torch.Tensor] = None,  # (B, T) 1=keep
+    deterministic: bool = True,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Full-sequence decoder -> logits (B, T, vocab)."""
+    """Full-sequence decoder -> logits (B, T, vocab); with
+    ``deterministic=False`` dropout draws from ``generator``."""
+    gen = _train_generator(deterministic, generator, cfg)
+    rate = cfg.dropout_rate
     dec = model.decoder
     T = decoder_input_ids.shape[1]
     dev = encoder_hidden.device
-    x = model.shared_embedding[decoder_input_ids].to(cfg.dtype)
+    x = dropout(model.shared_embedding[decoder_input_ids].to(cfg.dtype),
+                rate, gen)
     pos = torch.arange(T, device=dev)
     bias = position_bias(
         dec.rel_bias, pos, pos, False, cfg.relative_attention_num_buckets,
         cfg.relative_attention_max_distance,
     )[None]
     causal = torch.ones((T, T), dtype=torch.bool, device=dev).tril()[None, None]
+    if decoder_attention_mask is not None:
+        causal = causal & decoder_attention_mask[:, None, None, :].bool()
     for layer in dec.layers:
         h = rms_norm(x, layer.ln1, cfg.layer_norm_epsilon)
-        x = x + self_attention_block(layer.self_attn, h, bias, causal, cfg)
+        h = self_attention_block(layer.self_attn, h, bias, causal, cfg, gen)
+        x = x + dropout(h, rate, gen)
         h = rms_norm(x, layer.ln2, cfg.layer_norm_epsilon)
         ca = layer.cross_attn
         q = _split_heads(_proj(h, ca.q, cfg.dtype), cfg.num_heads, cfg.d_kv)
@@ -424,12 +481,46 @@ def decoder_forward(
                          cfg.num_heads, cfg.d_kv)
         v = _split_heads(_proj(encoder_hidden, ca.v, cfg.dtype),
                          cfg.num_heads, cfg.d_kv)
-        a = attention(q, k, v, None, None, cfg.dtype)
-        x = x + _proj(_merge_heads(a), ca.o, cfg.dtype)
+        a = attention(q, k, v, None, None, cfg.dtype, gen, rate)
+        x = x + dropout(_proj(_merge_heads(a), ca.o, cfg.dtype), rate, gen)
         h = rms_norm(x, layer.ln3, cfg.layer_norm_epsilon)
-        x = x + mlp_block(layer.mlp, h, cfg)
-    x = rms_norm(x, dec.final_ln, cfg.layer_norm_epsilon)
+        x = x + dropout(mlp_block(layer.mlp, h, cfg, gen), rate, gen)
+    x = dropout(rms_norm(x, dec.final_ln, cfg.layer_norm_epsilon), rate, gen)
     return _proj(x, model.lm_head, cfg.dtype)
+
+
+def shift_right(labels: torch.Tensor, cfg: T5Config) -> torch.Tensor:
+    """HF T5 _shift_right: prepend decoder_start, drop the last label,
+    -100 -> pad."""
+    start = torch.full((labels.shape[0], 1), cfg.decoder_start_token_id,
+                       dtype=labels.dtype, device=labels.device)
+    shifted = torch.cat([start, labels[:, :-1]], dim=1)
+    return torch.where(shifted == -100, cfg.pad_token_id, shifted)
+
+
+def cross_entropy_loss(logits: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+    """Token-mean cross entropy in fp32 with -100 ignored (HF
+    CrossEntropyLoss's default)."""
+    valid = labels != -100
+    safe = torch.where(valid, labels, 0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    return (nll * valid).sum() / valid.sum().clamp(min=1)
+
+
+def t5_forward(model: T5Model, inputs_embeds: torch.Tensor,
+               labels: torch.Tensor, cfg: T5Config,
+               deterministic: bool = True,
+               generator: Optional[torch.Generator] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training forward -> (loss, logits), labels padded with -100: the
+    encoder, then the decoder on the right-shifted labels (one generator
+    draws the encoder's masks, then the decoder's)."""
+    enc = encode(model, inputs_embeds, cfg, deterministic, generator)
+    logits = decoder_forward(model, shift_right(labels, cfg), enc, cfg,
+                             deterministic=deterministic, generator=generator)
+    return cross_entropy_loss(logits, labels), logits
 
 
 def conditioning_prepend(model: T5Model, features: torch.Tensor,

@@ -1,7 +1,7 @@
-"""MIDI event tokenizer: event-token sequences -> note tuples.
+"""MIDI event tokenizer: note tuples <-> event-token sequences.
 
-The port's own copy of the decode half of ``music2midi_tpu/tokenizer.py``
-(the encoder is not ported yet: nothing on the serving path encodes).
+The port's own copy of ``music2midi_tpu/tokenizer.py``: the encoder
+(``__call__``, ``encode``: the training labels) and the decoder.
 
 Behavior-equivalent to the reference tokenizer (reference:
 music2midi/tokenizer.py:18-267) but implemented as pure NumPy on the
@@ -45,7 +45,7 @@ OFFSET = 4
 
 
 class MidiTokenizer:
-    """event-token sequences -> notes[(onset_s, offset_s, pitch, velocity)]."""
+    """notes[(onset_s, offset_s, pitch, velocity)] <-> event tokens."""
 
     def __init__(self, config: Optional[Union[str, ConfigNode]] = None):
         cfg = resolve_config(config)
@@ -61,6 +61,68 @@ class MidiTokenizer:
         self.vocab_size: int = (
             self.time_token_offset + self.num_time_tokens
         )  # 333 used; model vocab is padded to 400 (config.yaml:25)
+
+    # ------------------------------------------------------------------ #
+    # encode                                                              #
+    # ------------------------------------------------------------------ #
+
+    def __call__(
+        self,
+        notes_batch: Iterable[np.ndarray],
+        cutoff_time: Optional[float] = None,
+    ) -> np.ndarray:
+        """Tokenize a batch of note arrays -> int64 [B, L] padded with PAD
+        (reference tokenizer.py:86-96, which pads with pad_sequence)."""
+        if not isinstance(notes_batch, Iterable):
+            raise TypeError("notes should be passed in batch")
+        seqs = [self.encode(notes, cutoff_time) for notes in notes_batch]
+        max_len = max(len(s) for s in seqs)
+        out = np.full((len(seqs), max_len), PAD, dtype=np.int64)
+        for i, s in enumerate(seqs):
+            out[i, : len(s)] = s
+        return out
+
+    def encode(
+        self, notes: np.ndarray, cutoff_time: Optional[float] = None
+    ) -> np.ndarray:
+        """Single note array -> int64 token sequence ending in EOS.
+
+        Semantics of reference tokenizer.py:98-141 + _get_tokens (202-222):
+        per unique quantized time index (ascending), emit
+        [time][ONSET p...][OFFSET p...], pitches in input row order.
+        """
+        notes = np.asarray(notes, dtype=np.float64)
+        if notes.size == 0:
+            return np.array([EOS], dtype=np.int64)
+
+        notes = notes.copy()
+        if cutoff_time is not None:
+            notes = notes[notes[:, 0] < cutoff_time]
+
+        # clamp min note length to one step (in seconds, pre-quantization)
+        notes[:, 1] = np.maximum(notes[:, 1], notes[:, 0] + self.time_step)
+        # quantize: half-up rounding, then clip to the time vocab
+        q = notes[:, :2] / self.time_step
+        q = np.rint(np.nextafter(q, q + 1))
+        q = np.minimum(q, self.num_time_tokens - 1)
+        onset_idx = q[:, 0]
+        offset_idx = q[:, 1]
+        # torch .long() truncates toward zero; pitches are ints in practice
+        pitch_tok = (notes[:, 2] + self.pitch_token_offset).astype(np.int64)
+
+        tokens: List[int] = []
+        for t in np.unique(q):
+            tokens.append(int(t) + self.time_token_offset)
+            on = pitch_tok[onset_idx == t]
+            if len(on) > 0:
+                tokens.append(ONSET)
+                tokens.extend(int(p) for p in on)
+            off = pitch_tok[offset_idx == t]
+            if len(off) > 0:
+                tokens.append(OFFSET)
+                tokens.extend(int(p) for p in off)
+        tokens.append(EOS)
+        return np.array(tokens, dtype=np.int64)
 
     # ------------------------------------------------------------------ #
     # decode                                                              #
@@ -157,3 +219,24 @@ class MidiTokenizer:
         if not rows:
             return np.zeros((0, 4), dtype=np.float64)
         return np.array(rows, dtype=np.float64)
+
+    # ------------------------------------------------------------------ #
+    # introspection                                                       #
+    # ------------------------------------------------------------------ #
+
+    def to_string(self, tokens: Iterable[int]) -> List[str]:
+        """Human-readable token names (reference tokenizer.py:26-44)."""
+        names = {PAD: "PAD", BOS: "BOS", EOS: "EOS", ONSET: "ONSET",
+                 OFFSET: "OFFSET"}
+
+        def _one(token: int) -> str:
+            token = int(token)
+            if token in names:
+                return names[token]
+            if token >= self.time_token_offset:
+                return f"time_{token - self.time_token_offset}"
+            if token >= self.pitch_token_offset:
+                return f"note_{token - self.pitch_token_offset}"
+            raise ValueError(f"Invalid token '{token}'")
+
+        return [_one(t) for t in tokens]

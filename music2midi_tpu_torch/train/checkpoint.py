@@ -1,0 +1,186 @@
+"""Checkpoints: the training state, parameter exports and the npz format.
+
+Port of ``music2midi_tpu/train/checkpoint.py``.  The layout of a training
+checkpoint is the JAX package's (``ckpt_dir/step_{N:08d}/`` with the
+config as ``config.json`` beside the state, the last ``keep`` steps
+kept), but the state itself is one ``state.pt`` written by ``torch.save``
+(orbax is not used by the port): the parameters as a CPU state_dict, the
+optimizer's ``state_dict`` and the step, all of it loadable with
+``torch.load(weights_only=True)``.  ``save_params`` writes
+``ckpt_dir/params.pt`` (+ ``config.json``).
+
+``save_params_npz`` / ``load_params_npz`` are the JAX package's npz format
+exactly ('/'-joined tree paths with '#i' for list indices, bfloat16 as its
+uint16 bit pattern with the true dtypes in the ``__dtypes__`` JSON, the
+config in ``__config__``), so an export from either package loads in the
+other; bfloat16 bits are taken from torch, with no ``ml_dtypes``.
+Parameters are flat state_dicts (``weights.py``); a key component that is
+all digits is a list index.  The readers (``restore_params``,
+``latest_checkpoint``, the npz loader) are ``weights.py``'s, so serving
+loads an export without the training package.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+from pathlib import Path
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..config import ConfigNode
+from ..weights import (
+    PARAMS_FILE,
+    STATE_FILE,
+    StateDict,
+    load_torch,
+    read_config,
+    step_dir,
+)
+# the readers live in weights.py (serving needs them, not the trainer);
+# they are named here as in the JAX module
+from ..weights import latest_checkpoint, restore_params  # noqa: F401
+from ..weights import load_npz as load_params_npz  # noqa: F401
+
+_NPZ_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+               "float32": torch.float32}
+
+
+def _cpu_state_dict(model) -> StateDict:
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in model.state_dict().items()}
+
+
+def _write_config(path: Path, config: Optional[ConfigNode]) -> None:
+    if config is not None:
+        (path / "config.json").write_text(json.dumps(config.to_dict()))
+
+
+def save_train_state(ckpt_dir: Union[str, Path], state,
+                     config: Optional[ConfigNode] = None,
+                     keep: int = 3) -> Path:
+    """Save {params, opt_state, step} (+ config JSON) under
+    ckpt_dir/step_{N:08d}; keep the last ``keep`` steps.  -> the step dir."""
+    ckpt_dir = Path(ckpt_dir).resolve()
+    path = ckpt_dir / f"step_{int(state.step):08d}"
+    path.mkdir(parents=True, exist_ok=True)
+    torch.save({"params": _cpu_state_dict(state.model),
+                "opt_state": state.optimizer.state_dict(),
+                "step": int(state.step)}, path / STATE_FILE)
+    _write_config(path, config)
+    _prune_old(ckpt_dir, keep)
+    return path
+
+
+def _prune_old(ckpt_dir: Path, keep: int) -> None:
+    for old in sorted(ckpt_dir.glob("step_*"))[:-keep]:
+        shutil.rmtree(old, ignore_errors=True)
+
+
+def restore_train_state(path: Union[str, Path], state
+                        ) -> Tuple[object, Optional[ConfigNode]]:
+    """Restore into ``state`` (a TrainState built as the saved one was:
+    the same parameter names and optimizer) from a step dir, or from a
+    training root taking its latest step.  -> (state, config | None)."""
+    path = step_dir(Path(path).resolve())
+    saved = load_torch(path / STATE_FILE)
+    with torch.no_grad():
+        own = state.model.state_dict()
+        if set(own) != set(saved["params"]):
+            raise ValueError(f"{path}: parameter names differ from the "
+                             "model's")
+        for k, v in saved["params"].items():
+            own[k].copy_(v)
+    state.optimizer.load_state_dict(saved["opt_state"])
+    state.step = int(saved["step"])
+    return state, read_config(path)
+
+
+def save_params(ckpt_dir: Union[str, Path], params: StateDict,
+                config: Optional[ConfigNode] = None) -> None:
+    """Inference-only export: just the params (+ config)."""
+    ckpt_dir = Path(ckpt_dir).resolve()
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    torch.save({k: v.detach().to("cpu", copy=True) for k, v in params.items()},
+               ckpt_dir / PARAMS_FILE)
+    _write_config(ckpt_dir, config)
+
+
+def average_params(sources: Sequence, weights: Optional[Sequence[float]] = None
+                   ) -> Tuple[StateDict, Optional[ConfigNode]]:
+    """Uniform (or ``weights``-weighted) average of the params of
+    ``sources``, each anything ``restore_params`` accepts.  Accumulates in
+    float64 and returns each leaf at its original dtype; the config comes
+    from the first source that has one, and every source must have the
+    same parameter names and shapes."""
+    if not sources:
+        raise ValueError("average_params: no sources")
+    if weights is None:
+        weights = [1.0] * len(sources)
+    if len(weights) != len(sources):
+        raise ValueError("average_params: len(weights) != len(sources)")
+    total = float(sum(weights))
+    if not np.isfinite(total) or total <= 0.0:
+        raise ValueError(
+            f"average_params: weights must sum to a finite positive "
+            f"value, got {total} from {list(weights)}"
+        )
+    acc: Dict[str, torch.Tensor] = {}
+    dtypes: Dict[str, torch.dtype] = {}
+    cfg = None
+    for src, w in zip(sources, weights):
+        params, src_cfg = restore_params(src)
+        cfg = cfg if cfg is not None else src_cfg
+        if not acc:
+            acc = {k: torch.zeros(v.shape, dtype=torch.float64)
+                   for k, v in params.items()}
+            dtypes = {k: v.dtype for k, v in params.items()}
+        elif set(params) != set(acc) or any(
+                params[k].shape != acc[k].shape for k in acc):
+            raise ValueError(
+                f"average_params: parameters of {src} differ from "
+                f"{sources[0]}"
+            )
+        for k, v in params.items():
+            acc[k] += (w / total) * v.to(torch.float64)
+    return {k: a.to(dtypes[k]) for k, a in acc.items()}, cfg
+
+
+def _npz_key(key: str) -> str:
+    """state_dict key -> the JAX tree path: '/'-joined, list indices '#i'."""
+    return "/".join(f"#{p}" if p.isdigit() else p for p in key.split("."))
+
+
+def save_params_npz(path: Union[str, Path], params: StateDict,
+                    config: Optional[ConfigNode] = None,
+                    dtype: str = "bfloat16") -> None:
+    """Single-FILE inference export in the JAX package's format: the float
+    weights cast to ``dtype`` ("bfloat16"/"float16"/"float32"), integer
+    leaves kept bit-exact, bfloat16 stored as its uint16 bit pattern with
+    the true dtypes in ``__dtypes__``, the config in ``__config__``."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    target = _NPZ_DTYPES[dtype]
+    arrays, dtypes = {}, {}
+    for key, t in params.items():
+        t = t.detach().cpu()
+        if t.is_floating_point():
+            t = t.to(target)
+        name = _npz_key(key)
+        if t.dtype == torch.bfloat16:
+            dtypes[name] = "bfloat16"
+            arrays[name] = t.contiguous().view(torch.int16).numpy().view(
+                np.uint16)
+        else:
+            a = t.numpy()
+            dtypes[name] = a.dtype.name
+            arrays[name] = a
+    arrays["__dtypes__"] = np.frombuffer(json.dumps(dtypes).encode(),
+                                         dtype=np.uint8)
+    if config is not None:
+        arrays["__config__"] = np.frombuffer(
+            json.dumps(config.to_dict()).encode(), dtype=np.uint8)
+    np.savez_compressed(path, **arrays)
+

@@ -13,6 +13,10 @@ The port keeps parameters as a flat ``state_dict`` whose keys are the same
 paths joined with ``.`` and without the ``#`` (``decoder.layers.0.self_attn.q``),
 which are exactly the parameter names of ``models.t5.T5Model``.  bfloat16
 bits are reinterpreted in torch, with no ``ml_dtypes``.
+
+``restore_params`` reads parameters from any layout the port writes: the
+npz export, a ``save_params`` directory (``params.pt``) or a training
+checkpoint of ``train/checkpoint.py`` (``step_{N:08d}/state.pt``).
 """
 
 from __future__ import annotations
@@ -101,3 +105,54 @@ def tree_from_state_dict(sd: StateDict) -> dict:
         return {k: lists(v) for k, v in node.items()}
 
     return lists(root)
+
+
+STATE_FILE = "state.pt"  # a training step dir's state (train/checkpoint.py)
+PARAMS_FILE = "params.pt"  # a save_params export
+
+
+def load_torch(path: Path) -> dict:
+    """A file the port's ``torch.save`` wrote, with ``weights_only``."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def read_config(path: Path) -> Optional[ConfigNode]:
+    cfg_file = path / "config.json"
+    if cfg_file.exists():
+        return ConfigNode(json.loads(cfg_file.read_text()))
+    return None
+
+
+def latest_checkpoint(ckpt_dir: Union[str, Path]) -> Optional[Path]:
+    ckpt_dir = Path(ckpt_dir)
+    if not ckpt_dir.exists():
+        return None
+    steps = sorted(ckpt_dir.glob("step_*"))
+    return steps[-1] if steps else None
+
+
+def step_dir(path: Path) -> Path:
+    """A step dir, or the latest step of a training root."""
+    if (path / STATE_FILE).exists():
+        return path
+    latest = latest_checkpoint(path)
+    if latest is None:
+        raise FileNotFoundError(f"no checkpoint under {path}")
+    return latest
+
+
+def restore_params(path: Union[str, Path]
+                   ) -> Tuple[StateDict, Optional[ConfigNode]]:
+    """Params for inference from any layout -> (state_dict, config|None):
+      * a ``save_params_npz`` single-file export (*.npz, from either
+        package),
+      * a ``save_params`` export (ckpt_dir/params.pt), or
+      * a training checkpoint (a step dir, or a root taking its latest
+        step)."""
+    path = Path(path).resolve()
+    if path.suffix == ".npz":
+        return load_npz(path)
+    if (path / PARAMS_FILE).exists():
+        return load_torch(path / PARAMS_FILE), read_config(path)
+    path = step_dir(path)
+    return load_torch(path / STATE_FILE)["params"], read_config(path)

@@ -398,3 +398,48 @@ def test_fft_mel_kernel_tiles_of_frames(card, batch, n_samples, n_fft, hop):
         assert float((got[2] - math.log(1e-6)).abs().max()) <= 1e-4
         assert int(got[1].mean(0).argmax()) == int(ref[1].mean(0).argmax())
 
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """One fp32 train step of the model of record at full width (6 + 6
+    layers, d_model 384) on 3-s windows at 22050 Hz (261 encoder
+    positions), dropout 0, on the card and on the CPU from the same
+    parameters and batch, no TF32 (PyTorch's default): loss within 1e-4
+    relative and the parameter updates' cosine >= 0.999, the bars of
+    ``chip_smoke.py``'s training phase.  A fixed lr of 1e-2: the relative
+    step's first lr moves a parameter by a few ulps only."""
+    from music2midi_tpu_torch.config import default_config
+    from music2midi_tpu_torch.models.t5 import t5_config_from
+    from music2midi_tpu_torch.ops.mel import log_mel_config_from
+    from music2midi_tpu_torch.train import Adafactor, Batch, make_train_step
+    from music2midi_tpu_torch.train.loop import TrainState, trainable_model
+    from music2midi_tpu_torch.weights import load_npz
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    sd, rec_cfg = load_npz(RECORD)
+    config = default_config()
+    cfg = t5_config_from(rec_cfg, torch.float32)._replace(dropout_rate=0.0)
+    mel_cfg = log_mel_config_from(config)
+    rng = np.random.default_rng(0)
+    labels = np.full((4, 120), -100, np.int32)
+    for i, n in enumerate((120, 64, 97, 30)):
+        labels[i, :n] = rng.integers(3, 333, n)
+        labels[i, n - 1] = 2
+    batch = Batch((rng.normal(size=(4, 66150)) * 0.1).astype(np.float32),
+                  labels, np.array([[0, 0], [1, 2], [5, 1], [3, 0]]))
+    loss, update = {}, {}
+    for dev in (card, torch.device("cpu")):
+        model = trainable_model(sd, cfg, dev)
+        state = TrainState(model, Adafactor(list(model.parameters()),
+                                            lr=1e-2))
+        before = torch.cat([p.detach().flatten().double().cpu()
+                            for p in model.parameters()])
+        _, l = make_train_step(cfg, mel_cfg)(state, batch, 0)
+        loss[dev.type] = float(l)
+        update[dev.type] = torch.cat([p.detach().flatten().double().cpu()
+                                      for p in model.parameters()]) - before
+    assert np.isfinite(loss["cuda"])
+    assert abs(loss["cuda"] - loss["cpu"]) <= 1e-4 * abs(loss["cpu"])
+    cos = torch.nn.functional.cosine_similarity(update["cuda"],
+                                                update["cpu"], dim=0)
+    assert float(cos) >= 0.999

@@ -8,7 +8,8 @@ no ml_dtypes and no yaml; and the JAX package itself needs yaml at import
     ``chip_smoke.py`` finds no import of those packages or of
     ``music2midi_tpu``;
   * a subprocess in which importing any of them raises imports every port
-    module (``bench``, ``profiling`` and ``models.convert`` among them)
+    module (``bench``, ``profiling``, ``models.convert`` and the training
+    modules, the train CLI among them)
     and ``chip_smoke``, then runs the calibration fixture through
     ``Music2MIDI.from_npz(model_of_record, device="cpu")`` in fp32 through
     ``generate`` and through ``generate_batch``: the pinned ``check_midi``
@@ -46,7 +47,10 @@ def _imported_roots(path: Path):
 def test_port_sources_import_no_blocked_package():
     files = _port_files()
     assert len(files) > 10, files
-    for name in ("bench.py", "profiling.py", "models/convert.py"):
+    for name in ("bench.py", "profiling.py", "models/convert.py",
+                 "train/loop.py", "train/adafactor.py", "train/checkpoint.py",
+                 "train/__main__.py", "data/dataset.py", "evaluation.py",
+                 "dsp.py"):
         assert PKG / name in files
     bad = [
         f"{p.relative_to(ROOT)}:{line} imports {root}"
@@ -107,8 +111,26 @@ def test_port_runs_with_the_card_machines_packages_only():
     assert "music2midi_tpu_torch.ops.mel_cuda" in res["modules"]
     assert "music2midi_tpu_torch.infer.pipeline" in res["modules"]
     assert "music2midi_tpu_torch.ops.decode_attention" in res["modules"]
-    for name in ("bench", "profiling", "models.convert"):
+    for name in ("bench", "profiling", "models.convert", "train.loop",
+                 "train.adafactor", "train.checkpoint", "train.__main__",
+                 "data.dataset", "evaluation", "dsp"):
         assert f"music2midi_tpu_torch.{name}" in res["modules"]
     assert res["leaked"] == []
     assert res["ok"], res["detail"]
     assert res["batch_same"]
+
+
+def test_serving_imports_no_training_module():
+    """Serving (the engine, its bench) loads checkpoints through
+    ``weights.py`` and imports nothing of the training package."""
+    code = ("import json, sys\n"
+            "import music2midi_tpu_torch.infer, music2midi_tpu_torch.bench\n"
+            "print(json.dumps(sorted(sys.modules)))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    mods = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "music2midi_tpu_torch.infer.pipeline" in mods
+    training = [m for m in mods if m.split(".")[:2] in (
+        ["music2midi_tpu_torch", "train"], ["music2midi_tpu_torch", "data"])]
+    assert training == []
