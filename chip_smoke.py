@@ -87,13 +87,36 @@ and exits non-zero, and nothing is caught and passed over:
      ``Music2MIDI.from_npz`` through the calibration gate; and the train
      CLI (``python3 -m music2midi_tpu_torch.train``'s ``main``) for 4
      bf16 steps from the model of record with ``--eval_in_train``;
-  12. the ``kernels`` JSON line.
+  12. entry points, in a temporary working directory, through what a user
+     runs (the model of record, bf16 unless said): (a)
+     ``music2midi_tpu_torch.serve_batch``'s ``main`` on 4 synthetic 60-s
+     songs written as 16-kHz WAVs: every song has notes, its MIDI file is
+     byte-identical to ``generate_batch(waveforms=...)``'s on the loaded
+     audio, kernels 1 and 3 launched; (b) the web UI (``webui.Handler`` on
+     a ``ThreadingHTTPServer`` at 127.0.0.1, port 0, with a bf16 engine and
+     its ``DynamicBatcher``) takes the 4 songs as concurrent uploads from
+     4 threads: each gets the result page and an ``output.mid`` that the
+     port's SMF reader parses, byte-identical to ``generate``'s on the
+     same file; the batcher forms fewer engine batches than uploads;
+     kernels 1 and 3 launched; the dispatcher thread's peak memory is at
+     most 1.05x one main-thread ``generate_batch`` of all 4 songs; the
+     latencies are printed; (c) ``music2midi_tpu_torch.evaluate``'s
+     ``main`` on the training phase's corpus in fp32 (no kernel launched,
+     the parity mode) and bf16 (kernels 1 and 3): one CSV row per test
+     id, scores in [0, 1], the mean score and the chunks at the token
+     cap printed; (d) with ``ffmpeg`` on the machine, a FLAC made of a
+     song's WAV loads equal to the WAV within 1/32768; without it,
+     ``audio.load`` of an mp3 raises the JAX package's ``ValueError``;
+  13. the ``kernels`` JSON line.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-Only ``nvcc`` and ``nvidia-smi`` are started as subprocesses, and the
-training phase's loaders spawn their worker processes, each pool shut
-down when its epoch ends; no threads.
+Only ``nvcc``, ``nvidia-smi`` and ``ffmpeg`` (where present) are started
+as subprocesses; the training phase's loaders spawn their worker
+processes, each pool shut down when its epoch ends.  The threads are the
+entry-point phase's (the HTTP server, its request threads, the upload
+clients, the batcher's dispatcher and loader pool, ``generate_batch``'s
+prefetch pool), each joined or shut down before the phase ends.
 """
 
 from __future__ import annotations
@@ -539,6 +562,215 @@ def training_phase(smi: str, launches_of, check_midi, fixture_path: str
             f"{cli_losses}, train/score "
             f"{[r['train/score'] for r in records if 'train/score' in r]}, "
             f"val/loss {[r['val/loss'] for r in records if 'val/loss' in r]}")
+    for line in lines:
+        print(f"  {line}", flush=True)
+    return f"{len(lines)} checks [{smi}]"
+
+
+ENTRY_SONGS, ENTRY_SONG_S = 4, 60.0  # songs of the entry-point phase
+
+
+def _post_upload(url: str, path: Path) -> tuple:
+    """POST one WAV to the web UI's /generate -> (result page, seconds)."""
+    import urllib.request
+
+    boundary = "smokeboundary"
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"url\""
+            f"\r\n\r\n\r\n--{boundary}\r\nContent-Disposition: form-data; "
+            f"name=\"file\"; filename=\"{path.name}\"\r\nContent-Type: "
+            "audio/wav\r\n\r\n").encode() + path.read_bytes() + \
+        f"\r\n--{boundary}--\r\n".encode()
+    req = urllib.request.Request(url + "/generate", data=body, headers={
+        "Content-Type": f"multipart/form-data; boundary={boundary}"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        page = r.read().decode()
+    return page, time.perf_counter() - t0
+
+
+def entry_points_phase(smi: str, launches_of, engine) -> str:
+    """The serving and evaluation entry points on the card; see the module
+    docstring, item 12.  `engine`: the bf16 engine of the model of record
+    that the direct calls run on.  Runs in a temporary working directory
+    (the CLIs write ``scores/`` and the web UI ``static/uploads/`` there).
+    -> the phase's info; raises on any failure."""
+    import os
+    import re
+    import shutil
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+
+    from music2midi_tpu_torch import audio, evaluate, serve_batch, webui
+    from music2midi_tpu_torch.infer import Music2MIDI
+    from music2midi_tpu_torch.midi import MidiFile
+    from music2midi_tpu_torch.serve.batcher import DynamicBatcher
+
+    mel_k, attn_k = "log_mel_spectrogram_cuda", "decode_attention_int8"
+    lines = []
+    old_cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as td:
+        td = Path(td)
+        os.chdir(td)
+        try:
+            songs = []
+            for i in range(ENTRY_SONGS):
+                songs.append(td / "songs" / f"song{i}.wav")
+                songs[-1].parent.mkdir(exist_ok=True)
+                audio.write_wav(songs[-1], synthetic_song(
+                    ENTRY_SONG_S, 16000, seed=20 + i), 16000)
+            waves = [audio.load(p, sr=16000)[0] for p in songs]
+
+            # (a) serve_batch: its files are the direct call's, byte for byte
+            summary, n = launches_of(lambda: serve_batch.main(
+                [str(td / "out"), *map(str, songs), "--device", CARD]))
+            require(n[mel_k] > 0 and n[attn_k] > 0,
+                    f"serve_batch: kernels 1 and 3 not launched: {n}")
+            direct = engine.generate_batch(waves)
+            notes = []
+            for i, (path, midi) in enumerate(zip(songs, direct)):
+                notes.append(len(midi.instruments[0].notes))
+                midi.write(td / f"direct{i}.mid")
+                require((td / "out" / f"{path.stem}.mid").read_bytes()
+                        == (td / f"direct{i}.mid").read_bytes(),
+                        f"serve_batch: {path.stem}.mid differs from "
+                        "generate_batch(waveforms=...)")
+            require(all(k > 0 for k in notes), f"a song gave no notes: "
+                    f"{notes}")
+            lines.append(f"serve_batch: {summary} launches={n} notes per "
+                         f"song={notes}, equal to generate_batch")
+
+            # (b) the web UI: concurrent uploads through the batcher
+            webui.engine = Music2MIDI.from_npz(RECORD, dtype=torch.bfloat16,
+                                               device=CARD)
+            formed = []
+            batch_fn = webui.engine.generate_batch
+
+            def recording(waveforms, cond_indices=None, **kw):
+                formed.append(len(waveforms))
+                return batch_fn(waveforms, cond_indices=cond_indices, **kw)
+
+            webui.engine.generate_batch = recording
+            webui.batcher = DynamicBatcher(webui.engine)
+            (td / "static" / "uploads").mkdir(parents=True)
+            webui.UPLOAD_DIR = Path("static/uploads")
+            server = ThreadingHTTPServer(("127.0.0.1", 0), webui.Handler)
+            url = f"http://127.0.0.1:{server.server_address[1]}"
+            serving = threading.Thread(target=server.serve_forever)
+            serving.start()
+            results = [None] * len(songs)
+            barrier = threading.Barrier(len(songs))
+
+            def upload(i):
+                barrier.wait()
+                results[i] = _post_upload(url, songs[i])
+
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                def post_all():
+                    clients = [threading.Thread(target=upload, args=(i,))
+                               for i in range(len(songs))]
+                    for t in clients:
+                        t.start()
+                    for t in clients:
+                        t.join(timeout=600)
+                        require(not t.is_alive(), "an upload hung")
+
+                _, n = launches_of(post_all)
+                thread_peak = torch.cuda.max_memory_allocated()
+                pages = []
+                for i, res in enumerate(results):
+                    require(res is not None and "piano cover" in res[0],
+                            f"upload {i}: no result page: {res}")
+                    m = re.search(r'href="([^"]*output\.mid)"', res[0])
+                    require(m is not None, f"upload {i}: no MIDI link")
+                    with urllib.request.urlopen(url + m.group(1),
+                                                timeout=60) as r:
+                        pages.append(r.read())
+            finally:
+                server.shutdown()
+                server.server_close()
+                serving.join(timeout=60)
+                webui.batcher.close()
+            require(mel_k in n and n[mel_k] > 0 and n[attn_k] > 0,
+                    f"web UI: kernels 1 and 3 not launched: {n}")
+            require(len(formed) < len(songs),
+                    f"the batcher formed {formed} for {len(songs)} uploads")
+            torch.cuda.reset_peak_memory_stats()
+            batch_fn(waves)
+            main_peak = torch.cuda.max_memory_allocated()
+            require(thread_peak <= 1.05 * main_peak,
+                    f"dispatcher peak {thread_peak} B > main thread's "
+                    f"{main_peak} B")
+            ui_notes = []
+            for i, (path, mid) in enumerate(zip(songs, pages)):
+                (td / f"ui{i}.mid").write_bytes(mid)
+                parsed = MidiFile(td / f"ui{i}.mid")
+                ui_notes.append(len(parsed.instruments[0].notes))
+                engine.generate(audio_path=path).write(td / f"gen{i}.mid")
+                require(mid == (td / f"gen{i}.mid").read_bytes(),
+                        f"web UI upload {i}: output.mid differs from "
+                        "generate's")
+            require(all(k > 0 for k in ui_notes), f"web UI notes {ui_notes}")
+            lat = sorted(r[1] for r in results)
+            lines.append(
+                f"webui: {len(songs)} concurrent uploads of {ENTRY_SONG_S} s, "
+                f"latency_s={lat} p50={float(np.median(lat)):.4f} "
+                f"max={lat[-1]:.4f}, engine batches={formed} (songs each), "
+                f"launches={n}, notes={ui_notes} equal to generate, peak "
+                f"memory dispatcher={thread_peak} B main={main_peak} B")
+
+            # (c) evaluate, fp32 and bf16, through the model of record
+            ids = write_training_corpus(td / "corpus")
+            for dtype in ("float32", "bfloat16"):
+                (res, n), secs = timed_s(lambda: launches_of(
+                    lambda: evaluate.main(
+                        [str(td / "corpus"), "--name", f"smoke-{dtype}",
+                         "--dtype", dtype, "--device", CARD])))
+                with open(td / res["csv"]) as f:
+                    rows = [r.split(",") for r in f.read().splitlines()[1:]]
+                scores = [float(r[4]) for r in rows]
+                require([r[0] for r in rows] == ids,
+                        f"evaluate {dtype}: rows {rows}")
+                require(all(0.0 <= x <= 1.0 for x in scores),
+                        f"evaluate {dtype}: scores {scores}")
+                launched = n[mel_k] > 0 and n[attn_k] > 0
+                require(launched == (dtype == "bfloat16"),
+                        f"evaluate {dtype}: launches {n}")
+                lines.append(
+                    f"evaluate {dtype}: {secs:.3f} s, "
+                    f"{secs / len(ids):.3f} s a song (engine load "
+                    f"included), mean_score={res['mean_score']:.6f} "
+                    f"scores={scores} chunks_at_cap={res['chunks_at_cap']} "
+                    f"of {res['chunks']} launches={n}")
+
+            # (d) ffmpeg: a FLAC of a song loads as its WAV, or load raises
+            if shutil.which("ffmpeg"):
+                flac = td / "song0.flac"
+                subprocess.run(["ffmpeg", "-v", "error", "-i", str(songs[0]),
+                                str(flac)], check=True)
+                y, sr = audio.load(flac, sr=16000)
+                err = float(np.abs(y - waves[0]).max())
+                require(sr == 16000 and y.shape == waves[0].shape
+                        and err <= 1 / 32768,
+                        f"ffmpeg FLAC vs WAV: {y.shape} max |diff| {err}")
+                lines.append(f"ffmpeg: present, FLAC vs WAV max |diff| "
+                             f"{err:.3e}")
+            else:
+                try:
+                    audio.load(td / "song.mp3", sr=16000)
+                    raised = ""
+                except ValueError as e:
+                    raised = str(e)
+                require(raised == "cannot decode .mp3 without ffmpeg; "
+                        "provide a .wav", f"no ffmpeg: load raised {raised!r}")
+                lines.append("ffmpeg: absent (load raises the JAX package's "
+                             "ValueError)")
+        finally:
+            os.chdir(old_cwd)
     for line in lines:
         print(f"  {line}", flush=True)
     return f"{len(lines)} checks [{smi}]"
@@ -1275,6 +1507,9 @@ def main() -> int:
         path = str(Path(td) / "a4_22050.wav")
         write_wav(path, fixture, fixture_sr)
         ph.info = training_phase(smi, launches_of, check_midi, path)
+
+    with Phase("entry_points") as ph:
+        ph.info = entry_points_phase(smi, launches_of, engine)
 
     with Phase("kernels"):
         print(json.dumps({"kernels": [

@@ -1,16 +1,18 @@
 """Waveform I/O and resampling.
 
-The port's own copy of ``music2midi_tpu/audio.py`` for WAV: RIFF/WAVE
-reading (PCM 8/16/24/32 and float32/64), 16-bit writing, polyphase
-windowed-sinc resampling (scipy.signal.resample_poly, Kaiser beta 14.77),
-``get_duration`` and peak ``normalize``.
-Other containers (decoded through an ``ffmpeg`` subprocess in the JAX
-package) are not supported here: pass a ``.wav``.
+The port's own copy of ``music2midi_tpu/audio.py``: RIFF/WAVE reading
+(PCM 8/16/24/32 and float32/64), 16-bit writing, polyphase windowed-sinc
+resampling (scipy.signal.resample_poly, Kaiser beta 14.77),
+``get_duration`` and peak ``normalize``.  Other containers (mp3, mp4,
+flac, ...) are decoded through an ``ffmpeg`` subprocess when the binary is
+on ``PATH``; without it they raise ``ValueError``.
 """
 
 from __future__ import annotations
 
+import shutil
 import struct
+import subprocess
 from math import gcd
 from pathlib import Path
 from typing import Optional, Tuple, Union
@@ -108,6 +110,23 @@ def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     return y.astype(np.float32)
 
 
+def _ffmpeg_available() -> bool:
+    return shutil.which("ffmpeg") is not None
+
+
+def _load_via_ffmpeg(path: Path, sr: Optional[int]) -> Tuple[np.ndarray, int]:
+    """Decode to mono float32 at ``sr`` (44100 when None); ffmpeg
+    resamples."""
+    rate = sr or 44100
+    cmd = [
+        "ffmpeg", "-v", "error", "-i", str(path),
+        "-f", "f32le", "-acodec", "pcm_f32le", "-ac", "1",
+        "-ar", str(rate), "-",
+    ]
+    out = subprocess.run(cmd, capture_output=True, check=True).stdout
+    return np.frombuffer(out, dtype="<f4").copy(), rate
+
+
 def load(
     path: Union[str, Path],
     sr: Optional[int] = 22050,
@@ -115,15 +134,30 @@ def load(
     duration: Optional[float] = None,
     mono: bool = True,
 ) -> Tuple[np.ndarray, int]:
-    """librosa.load-compatible for WAV: -> (mono float32 waveform, sr).
+    """librosa.load-compatible: -> (mono float32 waveform, sr).
 
-    sr=None keeps the native rate.  offset/duration crop BEFORE resampling
-    (like librosa), so window boundaries land on native-rate samples.
+    sr=None keeps the native rate.  For a WAV, offset/duration crop BEFORE
+    resampling (like librosa), so window boundaries land on native-rate
+    samples; any other file is decoded and resampled by ffmpeg and cropped
+    in target time.
     """
     path = Path(path)
-    if path.suffix.lower() != ".wav":
-        raise ValueError(f"cannot decode {path.suffix}: provide a .wav")
-    x, native_sr = read_wav(path)
+    if path.suffix.lower() == ".wav":
+        x, native_sr = read_wav(path)
+    elif _ffmpeg_available():
+        y, rate = _load_via_ffmpeg(path, sr)
+        x = y[None]
+        if offset or duration is not None:
+            i0 = int(round(offset * rate))
+            i1 = len(y) if duration is None else i0 + int(round(
+                duration * rate))
+            x = x[:, i0:i1]
+        out = x.mean(axis=0) if mono else x
+        return out.astype(np.float32), rate
+    else:
+        raise ValueError(
+            f"cannot decode {path.suffix} without ffmpeg; provide a .wav"
+        )
     if offset or duration is not None:
         i0 = int(round(offset * native_sr))
         i1 = (
@@ -140,12 +174,13 @@ def load(
 
 
 def get_duration(path: Union[str, Path]) -> float:
-    """Duration in seconds of a WAV file."""
+    """Duration in seconds (any other file than a WAV through ffmpeg)."""
     path = Path(path)
-    if path.suffix.lower() != ".wav":
-        raise ValueError(f"cannot decode {path.suffix}: provide a .wav")
-    x, sr = read_wav(path)
-    return x.shape[1] / sr
+    if path.suffix.lower() == ".wav":
+        x, sr = read_wav(path)
+        return x.shape[1] / sr
+    y, sr = _load_via_ffmpeg(path, None)
+    return len(y) / sr
 
 
 def normalize(x: np.ndarray) -> np.ndarray:

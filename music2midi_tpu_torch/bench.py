@@ -52,11 +52,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .evaluate import RECORD_CKPT, load_engine
+
 DECODE_TOKENS = 256  # forced tokens per 3-s chunk in the random mode
 N_SONGS = 8
 SONG_SECONDS = 180
-RECORD_CKPT = (Path(__file__).resolve().parent.parent / "checkpoints"
-               / "model_of_record.npz")
 
 
 def parse_args(argv=None):
@@ -106,33 +106,17 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _load_config(path):
-    if path is None:
-        return None
-    if Path(path).suffix in (".yaml", ".yml"):
-        raise SystemExit(f"--config {path}: pass the config as JSON (the "
-                         "port reads no yaml)")
-    return json.loads(Path(path).read_text())
-
-
 def _load_engine(args, trained: bool):
     from .infer import Music2MIDI
 
-    kw = {"dtype": torch.bfloat16, "device": args.device}
     if trained:
-        if args.max_decode:
-            kw["decode_max_length"] = args.max_decode
-        p = Path(args.ckpt)
-        config = _load_config(args.config)
-        if p.suffix in (".ckpt", ".pt"):
-            engine = Music2MIDI.from_torch_checkpoint(p, config, **kw)
-        elif p.suffix == ".npz":
-            engine = Music2MIDI.from_npz(p, config, **kw)
-        else:
-            engine = Music2MIDI.from_checkpoint(p, config, **kw)
+        kw = {"decode_max_length": args.max_decode} if args.max_decode else {}
+        engine = load_engine(args.ckpt, args.config, "bfloat16", args.device,
+                             **kw)
     else:
         engine = Music2MIDI.from_random(
-            seed=0, decode_max_length=args.max_decode or DECODE_TOKENS, **kw)
+            seed=0, decode_max_length=args.max_decode or DECODE_TOKENS,
+            dtype=torch.bfloat16, device=args.device)
         # EOS suppressed in the decode loop: every chunk decodes the full
         # DECODE_TOKENS
         engine.suppress_tokens = (engine.t5_config.eos_token_id,)

@@ -24,7 +24,9 @@ engine's knobs are attributes with its names and defaults:
 ``input_dither`` and ``mel_noise_floor``.
 
 Everything runs on ``device`` (``cuda`` unless the caller passes
-``device="cpu"``); no threads are started.  Checkpoints: the npz export
+``device="cpu"``).  The one thread pool is ``generate_batch``'s, which
+loads its ``audio_paths`` ahead of the stream (4 workers, 8 songs ahead)
+and is shut down before the call returns.  Checkpoints: the npz export
 (``from_npz``) and the reference's Lightning ``.ckpt``
 (``from_torch_checkpoint``), and the port's own training checkpoints and
 exports (``from_checkpoint``, through ``weights.py::restore_params``); an
@@ -35,6 +37,8 @@ raises).
 from __future__ import annotations
 
 import functools
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Union
 
@@ -78,6 +82,28 @@ def _dither_tile(split_size: int) -> np.ndarray:
     return np.random.default_rng(0xD17E12).standard_normal(
         split_size
     ).astype(np.float32)
+
+
+_LOAD_WORKERS, _LOAD_AHEAD = 4, 8  # generate_batch's audio_paths prefetch
+
+
+def _prefetched(pool: ThreadPoolExecutor, paths, sr: int):
+    """Yield ``audio.load(path, sr=sr)[0]`` for each path in order, with at
+    most ``_LOAD_AHEAD`` loads submitted ahead: a decoded 3-minute song is
+    ~11.5 MB, so submitting every load at once would hold the whole set in
+    host memory when decoding outpaces the card."""
+    pending: deque = deque()
+    it = iter(paths)
+    for p in it:
+        pending.append(pool.submit(audio.load, p, sr=sr))
+        if len(pending) >= _LOAD_AHEAD:
+            break
+    while pending:
+        f = pending.popleft()
+        nxt = next(it, None)
+        if nxt is not None:
+            pending.append(pool.submit(audio.load, nxt, sr=sr))
+        yield f.result()[0]
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -494,8 +520,10 @@ class Music2MIDI:
         song's entry of ``cond_indices`` (None: all zeros); the rows that
         pad the last batch to its bucket get zero audio and zero
         conditioning.  Each row's time offset is its chunk index within
-        its own song.  ``audio_paths`` (WAV) are loaded one at a time as
-        the stream reaches them; no thread is started.
+        its own song.  ``audio_paths`` are loaded (``audio.load`` at the
+        model rate) on a pool of 4 threads, at most 8 songs ahead of the
+        stream and in input order, so that decoding and resampling overlap
+        the card's work on earlier songs.
         ``last_decode_stats`` holds one entry per dispatched batch.  When
         sampling, batch k draws from ``_sample_rng(k)``, as in the JAX
         engine."""
@@ -507,11 +535,21 @@ class Music2MIDI:
         elif len(cond_indices) != n_songs:
             raise ValueError(f"cond_indices has {len(cond_indices)} entries "
                              f"for {n_songs} songs")
+        pool = None
         if audio_paths is not None:
-            model_sr = int(self.config.model.sample_rate)
-            waves = (audio.load(p, sr=model_sr)[0] for p in audio_paths)
+            pool = ThreadPoolExecutor(max_workers=_LOAD_WORKERS)
+            waves = _prefetched(pool, audio_paths,
+                                int(self.config.model.sample_rate))
         else:
             waves = iter(waveforms)
+        try:
+            return self._generate_stream(waves, cond_indices)
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True, cancel_futures=True)
+
+    def _generate_stream(self, waves, cond_indices) -> List[MidiFile]:
+        """``generate_batch`` over an iterator of waveforms."""
         max_bs = int(self.config.inference.batch_size)
         n_steps = self._n_steps()
         n_cond = self.num_conditioning

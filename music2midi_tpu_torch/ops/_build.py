@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -70,6 +71,9 @@ class BuildInfo:
 
 _lib: Optional[ctypes.CDLL] = None
 _info: Optional[BuildInfo] = None
+# one build and one load a process, whichever thread launches first (the
+# serving batcher's dispatcher thread may be the first)
+_lock = threading.RLock()
 
 
 def find_nvcc() -> str:
@@ -120,9 +124,14 @@ def _run_all(cmds: list) -> str:
 def build() -> BuildInfo:
     """Compile csrc/*.cu (if this exact source set is not built yet): one
     ``nvcc -c`` per source in parallel, then one link."""
-    global _info
     if _info is not None:
         return _info
+    with _lock:
+        return _info or _build()
+
+
+def _build() -> BuildInfo:
+    global _info
     sources = _sources()
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
@@ -151,14 +160,17 @@ def build() -> BuildInfo:
 def load() -> ctypes.CDLL:
     """The built library, with every launcher's argtypes declared."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build().path))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = _c_int
-        _lib = lib
-    return _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build().path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = _c_int
+            _lib = lib
+        return _lib
 
 
 def check(status: int, what: str) -> None:

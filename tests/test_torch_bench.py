@@ -159,8 +159,11 @@ def test_run_workload_and_result_line_have_bench_py_keys(engine,
 
 
 def test_config_must_be_json(tmp_path):
+    """The bench's --config goes through the CLIs' ``load_config``."""
+    from music2midi_tpu_torch.evaluate import load_config
+
     with pytest.raises(SystemExit, match="JSON"):
-        bench._load_config(str(tmp_path / "config.yaml"))
+        load_config(str(tmp_path / "config.yaml"))
     path = tmp_path / "config.json"
     path.write_text('{"inference": {"batch_size": 4}}')
-    assert bench._load_config(str(path)) == {"inference": {"batch_size": 4}}
+    assert load_config(str(path)) == {"inference": {"batch_size": 4}}

@@ -1,0 +1,207 @@
+"""The port's CLIs against the repository's root ones, on the CPU:
+``music2midi_tpu_torch.evaluate`` vs root ``evaluate.py`` and
+``music2midi_tpu_torch.serve_batch`` vs root ``serve_batch.py``, and
+``load_engine``'s dispatch.
+
+The checkpoint is one small npz written here by the JAX package's own
+``save_params_npz``: the model of record cut to its first 2 encoder and 2
+decoder layers, with that 2 + 2-layer config embedded.  Both sides load it
+through their CLI's ``load_engine``, whose engine gets a decode cap of 64
+tokens here (the same on both sides) to keep the JAX programs small.  The
+corpus is 3 short synthetic songs laid out as
+``chip_smoke.py::write_training_corpus`` lays one out.
+
+Bars (fp32): the CSV rows equal, the columns ``piano_id``, ``model``,
+``genre``, ``difficulty`` exactly and ``score`` within 1e-6; the MIDI files
+``serve_batch`` writes are byte-identical (so the notes per song are
+equal) and the JSON line has the root's keys; ``load_engine`` dispatches
+on the suffix, honours an npz's embedded config unless ``--config`` is
+given, and falls back to the model of record, else random weights.
+"""
+
+import csv
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+import evaluate as root_evaluate
+from music2midi_tpu.infer import Music2MIDI as JaxMusic2MIDI
+from music2midi_tpu.train.checkpoint import save_params_npz
+from music2midi_tpu_torch import evaluate, serve_batch
+from music2midi_tpu_torch.audio import write_wav
+from music2midi_tpu_torch.config import default_config
+from music2midi_tpu_torch.infer import Music2MIDI
+
+RECORD = Path(__file__).resolve().parent.parent / "checkpoints" \
+    / "model_of_record.npz"
+CAP = 64
+SONGS = (("s00", 5.0, "pop", "beginner"), ("s01", 4.0, "rock", "advanced"),
+         ("s02", 6.5, "classical", "intermediate"))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    root = tmp_path_factory.mktemp("corpus")
+    for d in ("audio", "midi_numpy", "metadata"):
+        (root / d).mkdir()
+    for i, (pid, seconds, genre, difficulty) in enumerate(SONGS):
+        notes = chip_smoke.synthetic_notes(seconds, 10 + i)
+        write_wav(root / "audio" / f"{pid}.wav",
+                  chip_smoke.synthetic_song(seconds, 22050, 0, notes), 22050)
+        np.save(root / "midi_numpy" / f"{pid}.npy", notes)
+        (root / "metadata" / f"{pid}.yaml").write_text(
+            f"piano:\n  difficulty: {difficulty}\n  genre: {genre}\n"
+            f"  id: {pid}\n")
+    ids = np.array([s[0] for s in SONGS])
+    np.savez(root / "dataset_split.npz", train_id=ids, val_id=ids[:1],
+             test_id=ids)
+    return root
+
+
+@pytest.fixture(scope="module")
+def small_npz(tmp_path_factory):
+    ref = JaxMusic2MIDI.from_npz(RECORD, use_compilation_cache=False)
+    params = dict(ref.params)
+    for stack in ("encoder", "decoder"):
+        params[stack] = {**params[stack],
+                         "layers": params[stack]["layers"][:2]}
+    cfg = ref.config.to_dict()
+    cfg["model"]["t5"]["num_layers"] = 2
+    cfg["model"]["t5"]["num_decoder_layers"] = 2
+    from music2midi_tpu.config import ConfigNode
+
+    path = tmp_path_factory.mktemp("ckpt") / "small.npz"
+    save_params_npz(path, params, ConfigNode(cfg), dtype="float32")
+    return path
+
+
+@pytest.fixture
+def capped(monkeypatch):
+    """Every CLI engine decodes at most CAP tokens a chunk."""
+    for module in (root_evaluate, evaluate, serve_batch):
+        orig = module.load_engine
+
+        def load(*args, _orig=orig, **kw):
+            engine = _orig(*args, **kw)
+            engine.decode_max_length = CAP
+            return engine
+
+        monkeypatch.setattr(module, "load_engine", load)
+
+
+def _rows(path):
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def test_evaluate_equals_root(corpus, small_npz, capped, tmp_path,
+                              monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(sys, "argv", ["evaluate.py", str(corpus), "--ckpt",
+                                      str(small_npz), "--name", "root"])
+    root_evaluate.main()
+    res = evaluate.main([str(corpus), "--ckpt", str(small_npz), "--name",
+                         "port", "--device", "cpu"])
+    out = capsys.readouterr().out
+    want = _rows(tmp_path / "scores" / "score-root.csv")
+    got = _rows(tmp_path / "scores" / "score-port.csv")
+    assert res["csv"] == "scores/score-port.csv"
+    assert len(got) == len(want) == len(SONGS)
+    assert list(got[0]) == list(want[0]) == [
+        "piano_id", "model", "genre", "difficulty", "score"]
+    for g, w in zip(got, want):
+        assert (g["piano_id"], g["genre"], g["difficulty"]) == \
+            (w["piano_id"], w["genre"], w["difficulty"])
+        assert (g["model"], w["model"]) == ("port", "root")
+        assert abs(float(g["score"]) - float(w["score"])) <= 1e-6
+    assert any(float(g["score"]) > 0 for g in got)
+    assert res["chunks"] == sum(-(-int(s[1] * 16000) // 48000)
+                                for s in SONGS)
+    assert f"chunks at the token cap ({CAP} tokens): " \
+        f"{res['chunks_at_cap']} of {res['chunks']}" in out
+    assert f"mean score: {res['mean_score']:.4f}" in out
+
+
+def test_serve_batch_equals_root(corpus, small_npz, capped, tmp_path,
+                                 monkeypatch, capsys):
+    import serve_batch as root_serve_batch
+
+    songs = sorted(str(p) for p in (corpus / "audio").glob("*.wav"))
+    monkeypatch.setattr(sys, "argv", [
+        "serve_batch.py", str(tmp_path / "root"), *songs, "--ckpt",
+        str(small_npz), "--dtype", "float32", "--genre", "rock"])
+    root_serve_batch.main()
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    got = serve_batch.main([str(tmp_path / "port"), *songs, "--ckpt",
+                            str(small_npz), "--dtype", "float32", "--genre",
+                            "rock", "--device", "cpu"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == got and set(got) == set(want)
+    assert got["songs"] == want["songs"] == len(songs)
+    assert got["notes"] == want["notes"] > 0
+    for song in songs:
+        name = Path(song).stem + ".mid"
+        assert (tmp_path / "port" / name).read_bytes() == \
+            (tmp_path / "root" / name).read_bytes()
+
+
+def test_load_engine_dispatch(small_npz, tmp_path, monkeypatch, capsys):
+    eng = evaluate.load_engine(str(small_npz), None, device="cpu")
+    assert int(eng.config.model.t5.num_layers) == 2  # the embedded config
+    cfg = default_config().to_dict()
+    cfg["model"]["t5"].update(num_layers=2, num_decoder_layers=2)
+    cfg["inference"]["batch_size"] = 8
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+    eng = evaluate.load_engine(str(small_npz), str(tmp_path / "cfg.json"),
+                               "bfloat16", "cpu")
+    assert int(eng.config.inference.batch_size) == 8
+    assert eng.t5_config.dtype == torch.bfloat16
+    with pytest.raises(SystemExit, match="JSON"):
+        evaluate.load_engine(str(small_npz), str(tmp_path / "c.yaml"),
+                             device="cpu")
+
+    calls = []
+    for name in ("from_torch_checkpoint", "from_checkpoint"):
+        monkeypatch.setattr(Music2MIDI, name, classmethod(
+            lambda cls, p, config, _n=name, **kw: calls.append(
+                (_n, Path(p).name, config, kw["device"]))))
+    for ckpt in ("a.ckpt", "b.pt", "run_dir"):
+        evaluate.load_engine(str(tmp_path / ckpt), None, device="cpu")
+    assert calls == [("from_torch_checkpoint", "a.ckpt", None, "cpu"),
+                     ("from_torch_checkpoint", "b.pt", None, "cpu"),
+                     ("from_checkpoint", "run_dir", None, "cpu")]
+    with pytest.raises(NotImplementedError, match="orbax"):
+        Music2MIDI.from_orbax(tmp_path / "orbax")
+
+    # no checkpoint: random weights when a config is given
+    eng = evaluate.load_engine(None, str(tmp_path / "cfg.json"), device="cpu")
+    assert "RANDOM weights" in capsys.readouterr().out
+    assert int(eng.config.model.t5.num_layers) == 2
+    # no card and no --device cpu: no fallback to the CPU
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            evaluate.load_engine(str(small_npz), None)
+
+
+def test_load_engine_defaults_to_model_of_record(monkeypatch, tmp_path,
+                                                 capsys):
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "config.yaml").write_text("model: {t5: {num_layers: 2}}\n")
+    eng = evaluate.load_engine(None, None, "bfloat16", "cpu")
+    assert "model of record" in capsys.readouterr().out
+    assert int(eng.config.model.t5.num_layers) == 6  # config.yaml unread
+    emb = eng.model.state_dict()["shared_embedding"].float()
+    assert float(emb.abs().max()) > 1.0  # trained, not an init

@@ -443,3 +443,44 @@ def test_train_step_on_card_matches_cpu(card):
     cos = torch.nn.functional.cosine_similarity(update["cuda"],
                                                 update["cpu"], dim=0)
     assert float(cos) >= 0.999
+
+
+def test_batcher_on_card_gives_generate_batch_notes(card):
+    """The batcher's dispatcher thread serves on the card what
+    ``generate_batch`` gives on the main thread (bf16 serving, kernels 1
+    and 3 launched from that thread), with no more memory at its peak."""
+    import threading
+
+    from music2midi_tpu_torch.audio import resample
+    from music2midi_tpu_torch.calibration import render_fixture
+    from music2midi_tpu_torch.infer import Music2MIDI
+    from music2midi_tpu_torch.serve.batcher import DynamicBatcher
+
+    wav, sr = render_fixture()
+    y = resample(wav, sr, 16000)
+    songs = [y[:6 * 16000], y[6 * 16000:], y[3 * 16000:9 * 16000]]
+    engine = Music2MIDI.from_npz(RECORD, dtype=torch.bfloat16)
+    engine.generate_batch(songs)  # warm: kernels built, allocator sized
+    torch.cuda.reset_peak_memory_stats()
+    want = engine.generate_batch(songs)
+    main_peak = torch.cuda.max_memory_allocated()
+    counters = (mel_cuda.log_mel_spectrogram_cuda, da.decode_attention_int8)
+    before = [f.launches for f in counters]
+    torch.cuda.reset_peak_memory_stats()
+    batcher = DynamicBatcher(engine, max_batch_songs=len(songs),
+                             max_wait_ms=5000.0)
+    try:
+        futures = [batcher.submit(waveform=s) for s in songs]
+        got = [f.result(timeout=300) for f in futures]
+    finally:
+        batcher.close()
+    assert not batcher._thread.is_alive()
+    thread_peak = torch.cuda.max_memory_allocated()
+    assert all(f.launches > b for f, b in zip(counters, before))
+    for g, w in zip(got, want):
+        assert [(n.start, n.end, n.pitch, n.velocity)
+                for n in g.instruments[0].notes] == \
+            [(n.start, n.end, n.pitch, n.velocity)
+             for n in w.instruments[0].notes]
+    assert sum(len(m.instruments[0].notes) for m in got) > 0
+    assert thread_peak <= main_peak
