@@ -28,15 +28,20 @@ and exits non-zero, and nothing is caught and passed over:
        cross at enc_len 190 = L and 150 on K/V laid out as
        ``precompute_cross_kv`` lays them out, with ``round_pv`` off (the
        TPU kernel's arithmetic) and on (the serving route's); its launch
-       plan (``Int8AttentionPlan``) equal to it bit for bit; the
+       plan (``Int8AttentionPlan``) equal to it bit for bit, and, with the
+       step read from device memory, against the plain version at the
+       key-group boundaries, bit for bit against a host step, and NaN for
+       a step past the cache; the
        transposed-cross kernel at (64, 8, 64, 190) on the padded rows of
        ``transpose_cross_entry``, enc_len 190 and 150; bar 2e-2 on the bf16
        outputs; yardstick: ``F.scaled_dot_product_attention`` over K/V
        dequantized to bf16 before the timed region; timed over six
        inputs in turn, as the decode loop's six layers come: kernel 3 at
        causal n = 32, 128 and 1023 and cross L = 190, ``round_pv`` on and
-       off, through the public function and through the launch plan, each
-       with its host-inclusive time beside sdpa's; then kernel 3's f32
+       off, through the public function and through the launch plan (the
+       kernels line's time: the public function also writes its step to
+       the card), each with its host-inclusive time beside sdpa's; then
+       kernel 3's f32
        instance (a float32 query and output, an fp32 engine with int8 KV)
        at the same causal n and cross L, bar 1e-5 relative to the largest
        output, f32 sdpa beside it; and kernel 3 on the +-7-level entries
@@ -55,22 +60,34 @@ and exits non-zero, and nothing is caught and passed over:
      per-stage breakdown, and the
      decode stage with the attention kernels off and on (in turns) on
      the same encoder output, and the greedy tokens of the two routes
-     (the kernel with ``round_pv``, and plain ``_attention_int8``);
-  8. batch serving: ``warmup([128])``, then ``generate_batch`` over four
-     synthetic 3-minute songs, one warm-up (its kernel launches counted)
-     and two timed runs;
-  9. engine options on the calibration fixture with the model of record,
+     (the kernel with ``round_pv``, and plain ``_attention_int8``), their
+     agreement at least ``C1_BAR`` (ROADMAP C1);
+  8. decode graph: the decode loop as one captured program
+     (``infer/decode.py``) against its eager twin on the song's batch, in
+     every route (bf16 serving through kernel 3, ``pallas_cross`` through
+     kernel 4, ``int8_weights``, ``kv_bits=4``, ``unroll=8``,
+     ``suppress_tokens``, seeded sampling, fp32 parity): tokens and
+     lengths equal bit for bit, the kernels' counts 12 a step under
+     replay; ms a step at widths 64 and 128 (EOS suppressed, 1023 steps),
+     captured and eager; host launches a step and the device's idle share
+     under ``torch.profiler``; capture seconds;
+  9. batch serving: a fresh engine's ``warmup()`` over every bucket (each
+     bucket's capture seconds, the memory the engine keeps with every
+     bucket captured and its peak), then ``generate_batch`` (the
+     dispatcher thread and staged upload) over four synthetic 3-minute
+     songs, one warm-up (its kernel launches counted) and two timed runs;
+  10. engine options on the calibration fixture with the model of record,
      each from a fresh engine: bf16 with ``int8_weights``, ``kv_bits=4``,
      ``unroll=8`` (tokens equal to default serving's), sampling at
      ``temperature=1.0, top_k=10`` twice with one ``sample_seed`` (equal
      tokens), and fp32 with ``int8_kv=True`` (kernel 3's f32 instance);
      each prints its notes, launch counts and greedy-token agreement with
      default serving, and its decode stage time on the song's batch;
-  10. bench: ``music2midi_tpu_torch.bench``'s workload cut to 2 of its 8
+  11. bench: ``music2midi_tpu_torch.bench``'s workload cut to 2 of its 8
      songs, 1 group of 1 trial and 1 latency trial, then its secondary
      forced-256 run on the same songs: songs/min, p50 latency, ``mfu``
      (required non-null on an H100), ``mfu_executed``, tokens, notes;
-  11. training (``music2midi_tpu_torch.train``, no kernel on its path: the
+  12. training (``music2midi_tpu_torch.train``, no kernel on its path: the
      JAX trainer runs outside Pallas, and the counts of all four kernels
      must stay 0): a corpus of 4 synthetic 30-s songs written as the
      data-prep chain writes one (the train split lists each song 16 times,
@@ -87,7 +104,7 @@ and exits non-zero, and nothing is caught and passed over:
      ``Music2MIDI.from_npz`` through the calibration gate; and the train
      CLI (``python3 -m music2midi_tpu_torch.train``'s ``main``) for 4
      bf16 steps from the model of record with ``--eval_in_train``;
-  12. entry points, in a temporary working directory, through what a user
+  13. entry points, in a temporary working directory, through what a user
      runs (the model of record, bf16 unless said): (a)
      ``music2midi_tpu_torch.serve_batch``'s ``main`` on 4 synthetic 60-s
      songs written as 16-kHz WAVs: every song has notes, its MIDI file is
@@ -107,7 +124,7 @@ and exits non-zero, and nothing is caught and passed over:
      cap printed; (d) with ``ffmpeg`` on the machine, a FLAC made of a
      song's WAV loads equal to the WAV within 1/32768; without it,
      ``audio.load`` of an mp3 raises the JAX package's ``ValueError``;
-  13. the ``kernels`` JSON line.
+  14. the ``kernels`` JSON line.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -140,6 +157,11 @@ F32_BAR = 1e-5  # kernel 3's f32 instance vs plain, relative to max |out|
 B_SERVE, HEADS, D_KV = 64, 8, 64  # the song's bucket; the model's heads
 SELF_LEN, ENC_LEN = 1024, 190  # decode_max_length; 188 frames + 2 cond
 N_LAYERS = 6  # decoder layers: timed inputs taken in turn
+# ROADMAP C1: the song's greedy-token agreement of the kernel route with
+# plain _attention_int8 on the card, a floor just under its reading on an
+# H100 (0.971503, tools/song_agreement.py); tests/test_torch_gpu.py holds
+# the same bar
+C1_BAR = 0.96
 
 
 def require(ok: bool, what) -> None:
@@ -374,7 +396,7 @@ def write_training_corpus(root: Path, seed: int = 0) -> list:
 
 def training_phase(smi: str, launches_of, check_midi, fixture_path: str
                    ) -> str:
-    """The training path on the card; see the module docstring, item 11.
+    """The training path on the card; see the module docstring, item 12.
     -> the phase's info; raises on any failure."""
     import numpy as np
     import torch
@@ -590,7 +612,7 @@ def _post_upload(url: str, path: Path) -> tuple:
 
 def entry_points_phase(smi: str, launches_of, engine) -> str:
     """The serving and evaluation entry points on the card; see the module
-    docstring, item 12.  `engine`: the bf16 engine of the model of record
+    docstring, item 13.  `engine`: the bf16 engine of the model of record
     that the direct calls run on.  Runs in a temporary working directory
     (the CLIs write ``scores/`` and the web UI ``static/uploads/`` there).
     -> the phase's info; raises on any failure."""
@@ -776,6 +798,184 @@ def entry_points_phase(smi: str, launches_of, engine) -> str:
     return f"{len(lines)} checks [{smi}]"
 
 
+GRAPH_ROUTES = (  # decode_graph: label, dtype name, engine knobs
+    ("bf16 serving (kernel 3)", "bfloat16", {}),
+    ("pallas_cross (kernel 4)", "bfloat16", {"pallas_cross": True}),
+    ("int8_weights", "bfloat16", {"int8_weights": True}),
+    ("kv_bits=4", "bfloat16", {"kv_bits": 4}),
+    ("unroll=8", "bfloat16", {"unroll": 8}),
+    ("suppress_tokens", "bfloat16", {"suppress_tokens": (3, 131, 132)}),
+    ("sampling temperature=1.0 top_k=10 seed=5", "bfloat16",
+     {"temperature": 1.0, "top_k": 10, "sample_seed": 5}),
+    ("fp32 parity", "float32", {}),
+)
+TRACE_STEPS = 128  # decode steps under the profiler, captured and eager
+
+
+def decode_graph_phase(smi: str, launches_of, engine, batch, cond) -> str:
+    """The decode loop as one captured program on the card: for every
+    route of ``GRAPH_ROUTES`` (a fresh engine of the model of record but
+    for the default one), the song's batch decoded by ``generate_tokens``
+    (the first call captures, the second only replays) against
+    ``generate_tokens_eager``, its plain twin: tokens and lengths equal
+    bit for bit, and the kernels' counts under replay 12 a step (kernel 3
+    in every attention block; 6 + 6 of kernels 3 and 4 under
+    ``pallas_cross``; none in fp32).  Then, with EOS suppressed, ms a step
+    at widths 64 and 128 (1023 steps), captured and eager; the host's
+    launches a step and the device's idle share over ``TRACE_STEPS``
+    steps of each (``profiling.trace``), where the kernels 3 and 4 the
+    device ran, read off the trace by name and matched to the host calls
+    that launched them in the window, must equal what the wrappers
+    counted (a replay adds the counts its capture recorded), also for a
+    replay of the ``pallas_cross`` route; and the capture's seconds.
+    -> the phase's info; raises on any failure."""
+    import numpy as np
+    import torch
+
+    from music2midi_tpu_torch import profiling
+    from music2midi_tpu_torch.infer import Music2MIDI
+    from music2midi_tpu_torch.infer.decode import (
+        decode_programs,
+        generate_tokens,
+        generate_tokens_eager,
+    )
+
+    lines = []
+    encs, engines = {}, {}
+    for label, dtype, knobs in GRAPH_ROUTES:
+        eng = engine
+        if knobs or dtype != "bfloat16":
+            eng = Music2MIDI.from_npz(RECORD, dtype=getattr(torch, dtype))
+            for k, val in knobs.items():
+                setattr(eng, k, val)
+        engines[label] = eng
+        if dtype not in encs:
+            encs[dtype] = eng._encoder(eng._log_mel(eng._device_wave(batch)),
+                                       cond)
+        enc, dcfg = encs[dtype], eng._dcfg()
+
+        def run(fn):
+            return timed_s(lambda: launches_of(lambda: fn(
+                eng.model, enc, eng.t5_config, dcfg, eng._sample_rng(0))))
+
+        ((t_e, l_e), n_e), eager_s = run(generate_tokens_eager)
+        ((t_c, l_c), n_c), first_s = run(generate_tokens)
+        ((t_r, l_r), n_r), replay_s = run(generate_tokens)
+        for what, (t, ln) in (("captured", (t_c, l_c)),
+                              ("replayed", (t_r, l_r))):
+            require(torch.equal(t, t_e) and torch.equal(ln, l_e),
+                    f"decode_graph {label}: {what} tokens differ from the "
+                    "eager twin's")
+        steps = int(l_e.max()) - 1
+        run_steps = steps_run(steps, dcfg)
+        if dtype == "float32":
+            want = {"decode_attention_int8": 0, "decode_attention_cross_t": 0}
+        elif knobs.get("pallas_cross"):
+            want = {"decode_attention_int8": 6 * run_steps,
+                    "decode_attention_cross_t": 6 * run_steps}
+        else:
+            want = {"decode_attention_int8": 12 * run_steps,
+                    "decode_attention_cross_t": 0}
+        for name, n in (("eager", n_e), ("capturing", n_c), ("replay", n_r)):
+            got = {k: n[k] for k in want}
+            require(got == want, f"decode_graph {label}: {name} run "
+                    f"launched {got}, want {want} ({run_steps} steps)")
+        prog = decode_programs(eng.model)[
+            (enc.shape[0], enc.shape[1], eng.t5_config, dcfg, enc.device)]
+        lines.append(
+            f"{label}: tokens equal to the eager twin bit for bit, "
+            f"{steps} steps ({run_steps} run), launches a run={want}; "
+            f"eager {eager_s:.4f} s ({eager_s / run_steps * 1e3:.3f} ms a "
+            f"step), first captured {first_s:.4f} s (capture "
+            f"{[round(c, 4) for c in prog.capture_seconds]} s over "
+            f"{len(prog.graphs)} phase graphs), replayed {replay_s:.4f} s "
+            f"({replay_s / run_steps * 1e3:.3f} ms a step) "
+            f"sha256={sha16(t_e)}")
+
+    # ms a step at widths 64 and 128, EOS suppressed: 1023 steps each
+    forced = engine._dcfg()._replace(suppress_tokens=(2,))
+    enc64 = encs["bfloat16"]
+    for width, enc in ((64, enc64), (128, torch.cat([enc64, enc64]))):
+        (_, l_c), cap_s = timed_s(lambda: generate_tokens(
+            engine.model, enc, engine.t5_config, forced))
+        (_, l_c), rep_s = timed_s(lambda: generate_tokens(
+            engine.model, enc, engine.t5_config, forced))
+        ((_, l_e), n_e), eag_s = timed_s(lambda: launches_of(
+            lambda: generate_tokens_eager(engine.model, enc,
+                                          engine.t5_config, forced)))
+        steps = int(l_c.max()) - 1
+        require(steps == forced.max_length - 1 and torch.equal(l_c, l_e),
+                f"forced decode ran {steps} steps")
+        lines.append(
+            f"width {width}, {steps} steps (EOS suppressed): captured "
+            f"{rep_s / steps * 1e3:.4f} ms a step ({rep_s:.4f} s; first call "
+            f"with its capture {cap_s:.4f} s), eager "
+            f"{eag_s / steps * 1e3:.4f} ms a step ({eag_s:.4f} s) [{smi}]")
+
+    # launches a step and idle share, TRACE_STEPS steps of each; the
+    # kernels 3 and 4 the device ran (matched to the host calls in the
+    # window that launched them) against the wrappers' counts
+    kernel_of = {"decode_attention_int8": "decode_attention_int8_kernel",
+                 "decode_attention_cross_t": "decode_attention_cross_t_kernel"}
+    cross_label = next(lb for lb, _, kn in GRAPH_ROUTES
+                       if kn.get("pallas_cross"))
+    for name, eng, fn in (
+            ("captured", engine, generate_tokens),
+            ("eager", engine, generate_tokens_eager),
+            (f"captured {cross_label}", engines[cross_label],
+             generate_tokens)):
+        short = eng._dcfg()._replace(suppress_tokens=(2,),
+                                     max_length=TRACE_STEPS + 1)
+        if fn is generate_tokens:  # its capture, outside the trace
+            fn(eng.model, enc64, eng.t5_config, short)
+        with tempfile.TemporaryDirectory() as td:
+            with profiling.trace(td):
+                with profiling.annotate("decode"):
+                    _, counted = launches_of(lambda: fn(
+                        eng.model, enc64, eng.t5_config, short))
+            events = profiling.load_trace(td)
+        window = profiling.annotation_window(events, "decode")
+        launches = profiling.host_launches(events, window)
+        ran = profiling.device_kernels(events, kernel_of.values(), window)
+        ran = {k: ran[v] for k, v in kernel_of.items()}
+        counted = {k: counted[k] for k in kernel_of}
+        require(ran == counted and sum(ran.values()) == 12 * TRACE_STEPS,
+                f"decode_graph {name}: the device ran {ran} of kernels 3 "
+                f"and 4, the wrappers counted {counted}, want "
+                f"{12 * TRACE_STEPS} in all")
+        kernels = sum(ev.get("cat") == "kernel" and
+                      window[0] <= ev["ts"] < window[1] for ev in events)
+        lines.append(
+            f"{name}, width 64, {TRACE_STEPS} steps under torch.profiler: "
+            f"host launches a step="
+            f"{sum(launches.values()) / TRACE_STEPS:.3f} ({launches}), "
+            f"device kernels a step={kernels / TRACE_STEPS:.2f}, "
+            f"kernels 3 and 4 the device ran={ran} (the wrappers "
+            f"counted the same), device idle share="
+            f"{profiling.device_idle_share(events, window):.4f}, window "
+            f"{(window[1] - window[0]) / 1e3:.3f} ms, the device's clock "
+            f"past it {profiling.device_clock_past(events, window):.1f} us "
+            f"[{smi}]")
+    for line in lines:
+        print(f"  {line}", flush=True)
+    return f"{len(GRAPH_ROUTES)} routes, {len(lines)} lines [{smi}]"
+
+
+def steps_run(steps: int, dcfg) -> int:
+    """Decode steps a generation runs when its longest row takes `steps`:
+    whole bodies of ``unroll`` steps, the last at most past max_length - 1
+    by the body's padding."""
+    u = max(1, dcfg.unroll)
+    return min(-(-steps // u), -(-(dcfg.max_length - 1) // u)) * u
+
+
+def sha16(t) -> str:
+    """Short sha256 of a tensor's bytes (to compare runs)."""
+    import hashlib
+
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
 def int8_attention_inputs(L: int, causal: bool, n_sets: int,
                           bits: int = 8) -> list:
     """`n_sets` seeded decode-attention inputs on the card at the serving
@@ -959,8 +1159,10 @@ def attention_phase(smi: str) -> tuple:
                     (v[0][:, :, :n], v[1][..., :n]), r[:, SELF_LEN - n:],
                     step, kn, vn, True, 0, rp)
             out["kernel"].append(lambda a=args: da.decode_attention_int8(*a))
+            sd = torch.full((), step, dtype=torch.int32, device="cuda")
             out["plan"].append(
-                lambda p=plan, q=q, kn=kn, vn=vn: p.causal(0, q, kn, vn, step))
+                lambda p=plan, q=q, kn=kn, vn=vn, sd=sd:
+                p.causal(0, q, kn, vn, sd))
             out["plain"].append(
                 lambda a=args: da.decode_attention_int8_plain(*a))
             kd, vd = dequantized(k, n, dtype), dequantized(v, n, dtype)
@@ -1005,6 +1207,33 @@ def attention_phase(smi: str) -> tuple:
                   cross_calls(False, True, dtype=f32)):
         got, want = calls["plan"][0]().clone(), calls["kernel"][0]()
         require(torch.equal(got, want), "launch plan vs decode_attention_int8")
+
+    # the causal launch reads its step from device memory: through a plan
+    # over the whole cache, a device step at the key-group boundaries
+    # against the plain version (and bit for bit against the host step
+    # the plan writes to its own scalar); a step past the cache writes NaN
+    q, k, v, kn, vn, bias = self_sets[0]
+    rows = bias[0, :, 0, :]
+    plan = da.Int8AttentionPlan([(k, v)], rows, round_pv=True)
+    step_dev = torch.zeros((), dtype=torch.int32, device="cuda")
+    for step in (0, 1, 63, 64, 127, 128, 255, 256, 511, 512, SELF_LEN - 2,
+                 SELF_LEN - 1):
+        n = step + 1
+        step_dev.fill_(step)
+        got = plan.causal(0, q, kn, vn, step_dev).clone()
+        errs["int8"] = max(errs["int8"], check(
+            got, da.decode_attention_int8_plain(
+                q, (k[0][:, :, :n], k[1][..., :n]),
+                (v[0][:, :, :n], v[1][..., :n]), rows[:, SELF_LEN - n:],
+                step, kn, vn, True, round_pv=True),
+            f"int8 causal device step {step}"))
+        require(torch.equal(got, plan.causal(0, q, kn, vn, step)),
+                f"device step {step} vs host step")
+    step_dev.fill_(SELF_LEN)
+    out = plan.causal(0, q, kn, vn, step_dev)
+    torch.cuda.synchronize()
+    require(bool(torch.isnan(out.float()).all()),
+            "a step past the cache did not write NaN")
 
     # kernel 3 with round_pv (the serving route's arithmetic) first; most
     # chunks end by step 110, so n = 32 is the common step
@@ -1060,11 +1289,21 @@ def attention_phase(smi: str) -> tuple:
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
+    def kernel_ms(head) -> dict:
+        """The kernel's device time as the decode loop launches it (its
+        launch plan, with the step already on the card), where there is
+        one: the public function writes a host step to the card first, a
+        second launch in its time."""
+        if head.get("plan_ms") is None:
+            return {}
+        return {"ms": head["plan_ms"], "public_function_ms": head["ms"]}
+
     def entry(name, source, replaces, head):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": 0,
                 "max_abs_err": errs[name], **{k: head[k] for k in keys},
-                "shape": head["shape"], "timings": timings[name]}
+                **kernel_ms(head), "shape": head["shape"],
+                "timings": timings[name]}
 
     head = next(t for t in timings["int8"]
                 if t["shape"].startswith("causal step 1022 round_pv"))
@@ -1077,6 +1316,7 @@ def attention_phase(smi: str) -> tuple:
     # are those of that engine's run in engine_options
     int8["f32_instance"] = {"launches": 0, "max_rel_err": errs["f32"],
                             **{k: f32_head[k] for k in keys},
+                            **kernel_ms(f32_head),
                             "plan_host_ms": f32_head["plan_host_ms"],
                             "shape": f32_head["shape"]}
     return (int8,
@@ -1107,7 +1347,10 @@ def main() -> int:
     from music2midi_tpu_torch.bench import card_name_and_power_limit
     from music2midi_tpu_torch.calibration import check_midi, render_fixture
     from music2midi_tpu_torch.infer import Music2MIDI
-    from music2midi_tpu_torch.infer.decode import generate_tokens
+    from music2midi_tpu_torch.infer.decode import (
+        decode_programs,
+        generate_tokens,
+    )
     from music2midi_tpu_torch.ops import _build
     from music2midi_tpu_torch.ops.detokenize import detokenize
     from music2midi_tpu_torch.ops.mel import LogMelConfig, log_mel_spectrogram
@@ -1355,6 +1598,9 @@ def main() -> int:
             m = int(max(l_off[r], l_on[r]))
             agree_n += int((t_off[r, :m] == t_on[r, :m]).sum())
             agree_d += m
+        require(agree_n / agree_d >= C1_BAR,
+                f"kernel route vs _attention_int8 {agree_n / agree_d} < "
+                f"the C1 bar {C1_BAR}")
         ph.info = (f"p50_song_latency_s={p50:.4f} "
                    f"songs_per_min={60.0 / p50:.3f} runs_s={times} "
                    f"launches={song_launches} "
@@ -1372,34 +1618,50 @@ def main() -> int:
                    f"greedy_token_agreement_kernel_route_vs_attention_int8="
                    f"{agree_n / agree_d:.6f} ({agree_n}/{agree_d}) [{smi}]")
 
+    with Phase("decode_graph") as ph:
+        ph.info = decode_graph_phase(smi, launches_of, engine, batch, cond)
+
     with Phase("batch_serving") as ph:
         songs = [song] + [synthetic_song(180.0, 16000, seed=s)
                           for s in (8, 9, 10)]
         conds = [[0, 0], [1, 1], [2, 2], [3, 0]]
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        beng = Music2MIDI.from_npz(RECORD, dtype=torch.bfloat16)
         t0 = time.perf_counter()
-        engine.warmup([128])
+        beng.warmup()
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
+        kept = torch.cuda.memory_allocated() - held
+        peak = torch.cuda.max_memory_allocated() - held
+        captures = {key[0]: [round(c, 4) for c in prog.capture_seconds]
+                    for key, prog in decode_programs(beng.model).items()}
+        require(sorted(captures) == [8, 16, 32, 64, 128],
+                f"warmup captured the buckets {sorted(captures)}")
         runs = []
         _, batch_launches = launches_of(
-            lambda: engine.generate_batch(songs, cond_indices=conds))
+            lambda: beng.generate_batch(songs, cond_indices=conds))
         for i in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            midis = engine.generate_batch(songs, cond_indices=conds)
+            midis = beng.generate_batch(songs, cond_indices=conds)
             torch.cuda.synchronize()
             runs.append(time.perf_counter() - t0)
         notes = [len(m.instruments[0].notes) for m in midis]
         require(all(k > 0 for k in notes), f"a song gave no notes: {notes}")
         bstats = [{k: s[k] for k in ("batch_width", "real_rows", "steps",
                                      "tokens_real")}
-                  for s in engine.last_decode_stats]
+                  for s in beng.last_decode_stats]
         med = float(np.median(runs))
         single = {(n.start, n.end, n.pitch)
                   for n in midi.instruments[0].notes}
         batched = {(n.start, n.end, n.pitch)
                    for n in midis[0].instruments[0].notes}
-        ph.info = (f"warmup_s={warm_s:.3f} runs_s={runs} "
+        del beng
+        ph.info = (f"warmup_s={warm_s:.3f} (every bucket; capture seconds "
+                   f"by bucket {captures}; the engine keeps {kept} B with "
+                   f"every bucket captured, peak {peak} B) runs_s={runs} "
                    f"songs_per_min={4 * 60.0 / med:.3f} notes={notes} "
                    f"launches={batch_launches} "
                    f"last_decode_stats={bstats} "
@@ -1437,8 +1699,7 @@ def main() -> int:
                 setattr(eng, k, val)
             toks, n = launches_of(lambda: eng.sample_tokens_batched(chunks))
             steps = eng.last_decode_stats[0]["steps"]
-            run = min(-(-steps // eng.unroll) * eng.unroll,
-                      eng.decode_max_length - 1)
+            run = steps_run(steps, eng._dcfg())
             require(n["decode_attention_int8"] == 12 * run,
                     f"{label}: {n['decode_attention_int8']} int8 kernel "
                     f"launches for {run} decode steps")

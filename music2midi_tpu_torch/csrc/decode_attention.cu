@@ -33,32 +33,35 @@
 // one wave of 4 CTAs an SM, so a call takes one CTA's chain of latencies,
 // and its speed at long key ranges is the bytes it keeps in flight.
 //
-// The int8 kernel, one CTA of 256 threads per (b, h), four threads per key
-// (16 dims each, keys tid / 4 + 64 i):
-//   * it requests first whatever waits on nothing: q, its first group of
-//     K rows (kUnroll 16-byte loads a thread, 128 keys), and the scale and
-//     bias rows of every visible key into shared memory by cp.async (16
-//     bytes a copy where a row is contiguous), the latter waited for only
-//     after the first group's dot products;
-//   * K and then V rows come through registers in groups, each group's
-//     loads in flight while the group before is summed; the first V group
-//     is asked for with the last K group, so it lands during the softmax;
-//     key `step`'s rows and scales come from the fresh rows;
-//   * int8 unpacks on the ALU (unpack4), the max and the sum take one
-//     barrier each, and the output's sum over a warp's keys halves its
-//     values at each level (14 shuffles a lane, not 48).
-// The keys map to threads and the sums run in the order of the kernel it
-// replaced (one 16-byte load a thread, the scales fetched after the dot
-// product), so the output is the same bit for bit, only sooner.  Tried on
-// the card and dropped, all slower than this: a split of long key ranges
-// over a thread-block cluster (2048 CTAs at n = 1023 ran as four waves of
-// CTAs that wait on each other), and a ring of key tiles in shared memory
-// fed by cp.async or TMA bulk copies (its copy issue held enough pointers
-// to need 64 to 90 registers, and lost at short n).  What bounds it: at
-// short n the chain (a 512-CTA launch, one trip to memory, two barriers,
-// the output's reduction); at long n the two groups of rows in flight a
-// thread (PERF.md).
-//
+// The int8 kernel, one CTA of 256 threads per (b, h):
+//   * it requests first whatever waits on nothing: q (into shared memory),
+//     each thread's first K row (one key a thread, four 16-byte loads),
+//     and the scale and bias rows of every visible key into shared memory
+//     by cp.async (16 bytes a copy where a row is contiguous), the latter
+//     waited for only after the first keys' dot products;
+//   * the next K row is in flight while a thread sums its key's; the
+//     first group of V rows is asked for after the last K row, so it lands
+//     during the softmax; V rows come through registers in groups of two
+//     16-byte pieces a thread (four threads a key, 16 dims each), each
+//     group's loads in flight while the group before is summed; key
+//     `step`'s rows and scales come from the fresh rows;
+//   * int8 unpacks on the ALU (unpack4); the output's sum over a warp's
+//     keys halves its values at each level (14 shuffles a lane, not 48).
+// The scores and the softmax are summed in the order of the plain route
+// that the engine's tokens are held against on the card, models/t5.py::
+// _attention_int8 (cuBLAS's f32 matmul and torch.softmax, read off the
+// card by tools/c1_orders.py): q . k in four strided sums met as
+// (0 + 2) + (1 + 3), and the softmax's sum with lane i of one warp adding
+// keys i, i + 32, ... and the lanes meeting by a butterfly.  So where
+// cuBLAS takes that order (every prefix length at 256 (b, h) rows; it
+// takes another at some widths, such as two halves over a 1024-key prefix
+// at 512 rows) the rounded p vs of both routes are equal bit for bit; the
+// PV sums keep their own order.  What bounds it: at short n the chain (a 512-CTA
+// launch, one trip to memory, the barriers, the output's reduction); at
+// long n the rows in flight a thread (PERF.md).  Tried on the card and
+// dropped: a split of long key ranges over a thread-block cluster, and a
+// ring of key tiles in shared memory fed by cp.async or TMA bulk copies.
+
 // The transposed kernel: its rows are padded to 16 bytes
 // (ops/decode_attention.py::transpose_cross_entry), so at the start the
 // CTA issues every 16-byte cp.async of its K tile and then of its V tile
@@ -99,11 +102,15 @@ struct Int8AttnArgs {
     const int8_t* vn;
     const float* kns;        // their scales [b kns_sb + h kns_sh]
     const float* vns;
+    const int* step;         // this step's position, in device memory (causal)
     void* out;               // (B, H, D) contiguous, q's type
     int64_t q_sb, q_sh, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl;
     int64_t ks_sb, ks_sh, ks_sl, vs_sb, vs_sh, vs_sl, bias_sh, bias_sl;
     int64_t kn_sb, kn_sh, vn_sb, vn_sh, kns_sb, kns_sh, vns_sb, vns_sh;
-    int H, n_keys, step, causal, round_pv, q_f32;
+    // cross: the visible keys; causal: the keys the cache holds, so that
+    // step < n_keys, and the bias row's length, key j of step s at
+    // column n_keys - s - 1 + j
+    int H, n_keys, causal, round_pv, q_f32;
 };
 
 struct CrossTArgs {
@@ -171,16 +178,6 @@ __device__ __forceinline__ uint4 load16(const void* p) {
     return r;
 }
 
-// eight bf16 of a 16-byte word as floats
-__device__ __forceinline__ void bf16x8(const uint4 w, float* x) {
-    const unsigned u[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        x[2 * i] = __uint_as_float(u[i] << 16);
-        x[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-    }
-}
-
 // the 16 signed bytes of a 16-byte word as floats
 __device__ __forceinline__ void unpack16(const uint4 w, float* x) {
     unpack4(w.x, x);
@@ -230,126 +227,143 @@ __device__ __forceinline__ float to_out<float>(float x) {
     return x;
 }
 
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(float x) { return x; }
+
+// q . k over the 64 dims of one key (row: its 64 int8 bytes, q: 64 floats
+// in shared memory), in the order of the plain route's f32 matmul on the
+// H100 (cuBLAS; tools/c1_orders.py): four sums over the dims d = i mod 4,
+// each in d's order, met as (0 + 2) + (1 + 3)
+__device__ __forceinline__ float dot64(const uint4* row, const float* q) {
+    const unsigned w[16] = {row[0].x, row[0].y, row[0].z, row[0].w, row[1].x, row[1].y,
+                            row[1].z, row[1].w, row[2].x, row[2].y, row[2].z, row[2].w,
+                            row[3].x, row[3].y, row[3].z, row[3].w};
+    float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f, p3 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+        float x[4];
+        unpack4(w[i], x);
+        const float4 qv = reinterpret_cast<const float4*>(q)[i];
+        p0 = fmaf(x[0], qv.x, p0);
+        p1 = fmaf(x[1], qv.y, p1);
+        p2 = fmaf(x[2], qv.z, p2);
+        p3 = fmaf(x[3], qv.w, p3);
+    }
+    return (p0 + p2) + (p1 + p3);
+}
+
 template <typename Q, bool RoundPV>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 decode_attention_int8_kernel(const Int8AttnArgs a) {
-    // this thread's 16 q values are kQWords 16-byte words: 2 of bf16, 4 of f32
-    constexpr int kQWords = static_cast<int>(sizeof(Q));
     // (n,) each: scores (then exp(score - max)), k scales, v scales, bias
     extern __shared__ __align__(16) float s[];
     __shared__ float red_max[kWarps], red_sum[kWarps];
     __shared__ float part[kWarps][kD];
+    __shared__ __align__(16) float q_s[kD];
 
     const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int c = tid & 3;   // this thread's 16 of the 64 dims
     const int j = tid >> 2;  // and its key of every 64
-    const int n = a.n_keys, np = (n + 3) & ~3;
     const bool causal = a.causal != 0;
-    const int step = a.step;
+    // the step is read here, so that a captured launch follows it: keys
+    // 0..step are visible; a step outside the cache writes NaN, which the
+    // caller's output then shows
+    const int step = causal ? __ldg(a.step) : -1;
+    if (causal && (step < 0 || step >= a.n_keys)) {
+        if (tid < kD) {
+            static_cast<Q*>(a.out)[static_cast<int64_t>(blockIdx.x) * kD + tid] =
+                to_out<Q>(__int_as_float(0x7fc00000));
+        }
+        return;
+    }
+    const int n = causal ? step + 1 : a.n_keys, np = (n + 3) & ~3;
     float* ks_s = s + np;
     float* vs_s = ks_s + np;
     float* bias_s = vs_s + np;
-
-    // first every request that does not wait on another: q, the first
-    // group of K rows, and the scale and bias rows into shared memory
-    const Q* qp = static_cast<const Q*>(a.q) + b * a.q_sb + h * a.q_sh + 16 * c;
-    uint4 qw[kQWords];
-#pragma unroll
-    for (int i = 0; i < kQWords; ++i) qw[i] = load16(qp + i * (16 / kQWords));
-    // group g's loads: for u < kUnroll, this thread's 16-byte piece of the
-    // K or V row of key 64 (kUnroll g + u) + tid / 4 (key `step`'s from
-    // the fresh row)
-    auto load = [&](bool is_k, int base, uint4* row) {
-        const int8_t* rows = is_k ? a.k + b * a.k_sb + h * a.k_sh
-                                  : a.v + b * a.v_sb + h * a.v_sh;
-        const int64_t sl = is_k ? a.k_sl : a.v_sl;
-        const int8_t* fresh = is_k ? a.kn + b * a.kn_sb + h * a.kn_sh
-                                   : a.vn + b * a.vn_sb + h * a.vn_sh;
+    // group g's V loads: for u < kUnroll, this thread's 16-byte piece of
+    // the row of key 64 (kUnroll g + u) + tid / 4 (key `step`'s from the
+    // fresh row)
+    auto load_v = [&](int base, uint4* row) {
+        const int8_t* rows = a.v + b * a.v_sb + h * a.v_sh;
+        const int8_t* fresh = causal ? a.vn + b * a.vn_sb + h * a.vn_sh : nullptr;
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
             const int l = base + 64 * u + j;
-            if (l < n) row[u] = load16((causal && l == step ? fresh : rows + l * sl) + 16 * c);
+            if (l < n) row[u] = load16((causal && l == step ? fresh : rows + l * a.v_sl) + 16 * c);
         }
     };
-    uint4 cur[kUnroll], nxt[kUnroll];
-    load(true, 0, cur);
+
+    // first every request that does not wait on another: q, this
+    // thread's first K row, and the scale and bias rows into shared memory
+    if (tid < kD) {
+        q_s[tid] = to_float(static_cast<const Q*>(a.q)[b * a.q_sb + h * a.q_sh + tid]);
+    }
+    const int8_t* krows = a.k + b * a.k_sb + h * a.k_sh;
+    const int8_t* kfresh = causal ? a.kn + b * a.kn_sb + h * a.kn_sh : nullptr;
+    // key l's whole K row, four 16-byte loads (key `step`'s from the
+    // fresh row)
+    auto load_k = [&](int l, uint4* row) {
+        const int8_t* p = causal && l == step ? kfresh : krows + l * a.k_sl;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) row[i] = load16(p + 16 * i);
+    };
+    uint4 cur[4], nxt[4];
+    if (tid < n) load_k(tid, cur);
     copy_row(ks_s, a.ks + b * a.ks_sb + h * a.ks_sh, a.ks_sl, n);
     copy_row(vs_s, a.vs + b * a.vs_sb + h * a.vs_sh, a.vs_sl, n);
-    if (causal) copy_row(bias_s, a.bias + h * a.bias_sh, a.bias_sl, n);
+    if (causal) {
+        copy_row(bias_s, a.bias + h * a.bias_sh + (a.n_keys - n) * a.bias_sl, a.bias_sl, n);
+    }
     cp_async_commit();
     // key `step`'s scales from the fresh scales (the rows copied above hold
     // that key's cache entry)
     const float kn_scale = causal ? a.kns[b * a.kns_sb + h * a.kns_sh] : 0.0f;
     const float vn_scale = causal ? a.vns[b * a.vns_sb + h * a.vns_sh] : 0.0f;
-    float qf[16];
-#pragma unroll
-    for (int i = 0; i < kQWords; ++i) {
-        if constexpr (kQWords == 2) {
-            bf16x8(qw[i], qf + 8 * i);
-        } else {
-            qf[4 * i] = __uint_as_float(qw[i].x);
-            qf[4 * i + 1] = __uint_as_float(qw[i].y);
-            qf[4 * i + 2] = __uint_as_float(qw[i].z);
-            qf[4 * i + 3] = __uint_as_float(qw[i].w);
-        }
-    }
+    __syncthreads();  // q_s
 
-    // scores: four threads per key, a group of kUnroll keys' rows in
-    // flight while the group before is summed; the scale and bias rows
-    // are waited for after the first group's dot products
+    // scores: one thread a key (keys tid + 256 i), the next key's row in
+    // flight while this one is summed; the scale and bias rows are waited
+    // for after the first keys' dot products
     float m = -INFINITY;
-    for (int base = 0; base < n; base += 64 * kUnroll) {
-        if (base + 64 * kUnroll < n) load(true, base + 64 * kUnroll, nxt);
-        float dot[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-            float acc = 0.0f;
-            if (base + 64 * u + j < n) {
-                float x[16];
-                unpack16(cur[u], x);
-#pragma unroll
-                for (int i = 0; i < 16; ++i) acc = fmaf(x[i], qf[i], acc);
-            }
-            acc += __shfl_xor_sync(kFull, acc, 1);
-            dot[u] = acc + __shfl_xor_sync(kFull, acc, 2);
-        }
+    for (int base = 0; base < n; base += kThreads) {
+        const int l = base + tid;
+        if (l + kThreads < n) load_k(l + kThreads, nxt);
+        float acc = 0.0f;
+        if (l < n) acc = dot64(cur, q_s);
         if (base == 0) {
             cp_async_wait<0>();
             __syncthreads();
         }
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-            const int l = base + 64 * u + j;
-            const float acc = dot[u];
-            if (l < n && c == 0) {
-                float sc = acc * (causal && l == step ? kn_scale : ks_s[l]);
-                if (causal) sc += bias_s[l];
-                s[l] = sc;
-                m = fmaxf(m, sc);
-            }
+        if (l < n) {
+            float sc = acc * (causal && l == step ? kn_scale : ks_s[l]);
+            if (causal) sc += bias_s[l];
+            s[l] = sc;
+            m = fmaxf(m, sc);
         }
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) cur[u] = nxt[u];
+        for (int i = 0; i < 4; ++i) cur[i] = nxt[i];
     }
-    load(false, 0, cur);  // the first V group lands during the softmax
+    uint4 vcur[kUnroll], vnxt[kUnroll];
+    load_v(0, vcur);  // the first V group lands during the softmax
 
     m = warp_max(m);
     if (lane == 0) red_max[warp] = m;
     __syncthreads();
     m = red_max[0];
     for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red_max[w]);
-    float sum = 0.0f;
-    for (int l = tid; l < n; l += kThreads) {
-        const float e = expf(s[l] - m);
-        s[l] = e;
-        sum += e;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) red_sum[warp] = sum;
+    for (int l = tid; l < n; l += kThreads) s[l] = expf(s[l] - m);
     __syncthreads();
-    sum = 0.0f;
-    for (int w = 0; w < kWarps; ++w) sum += red_sum[w];
+    // the sum in torch.softmax's order: lane i of one warp adds keys
+    // i, i + 32, ... in turn, then the lanes meet by a butterfly
+    if (warp == 0) {
+        float part_sum = 0.0f;
+        for (int l = lane; l < n; l += 32) part_sum += s[l];
+        part_sum = warp_sum(part_sum);
+        if (lane == 0) red_sum[0] = part_sum;
+    }
+    __syncthreads();
+    const float sum = red_sum[0];
 
     // out[d] = sum_l (p_l vs_l) v8[l][d]: thread (keys tid / 4 + 64 i,
     // dims c)
@@ -357,7 +371,7 @@ decode_attention_int8_kernel(const Int8AttnArgs a) {
 #pragma unroll
     for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
     for (int base = 0; base < n; base += 64 * kUnroll) {
-        if (base + 64 * kUnroll < n) load(false, base + 64 * kUnroll, nxt);
+        if (base + 64 * kUnroll < n) load_v(base + 64 * kUnroll, vnxt);
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
             const int l = base + 64 * u + j;
@@ -365,13 +379,13 @@ decode_attention_int8_kernel(const Int8AttnArgs a) {
                 const float pv = s[l] / sum * (causal && l == step ? vn_scale : vs_s[l]);
                 const float w = RoundPV ? bf16_round(pv) : pv;
                 float x[16];
-                unpack16(cur[u], x);
+                unpack16(vcur[u], x);
 #pragma unroll
                 for (int i = 0; i < 16; ++i) acc[i] = fmaf(w, x[i], acc[i]);
             }
         }
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) cur[u] = nxt[u];
+        for (int u = 0; u < kUnroll; ++u) vcur[u] = vnxt[u];
     }
     // sum the warp's eight keys (lanes with the same c) by halving: at the
     // level of lane bit 2 + k each lane keeps half of its sums and adds
@@ -406,7 +420,9 @@ int launch_int8(const Int8AttnArgs& a, int pairs, void* stream) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    // the score, scale and bias rows: 16 KB at 1024 keys, 64 at MAX_KEYS
+    // the score, scale and bias rows of the most keys a launch can see
+    // (the cache's length for the causal kernel, which reads its step on
+    // the card): 16 KB at 1024 keys, 64 at MAX_KEYS
     const size_t smem = 4 * static_cast<size_t>((a.n_keys + 3) & ~3) * sizeof(float);
     static const bool opted =
         allow_smem(decode_attention_int8_kernel<__nv_bfloat16, false>, 16 * kMaxKeys)
@@ -583,23 +599,24 @@ decode_attention_cross_t_kernel(const CrossTArgs a) {
 // One launch of the int8 kernel: the argument block with the fields that
 // stay fixed over a generation (ops/decode_attention.py packs it once per
 // cache buffer), and what moves from call to call: q, and for the causal
-// kernel this step's fresh rows, the bias row's window and the step.
+// kernel this step's fresh rows and the address of the step, an int32 in
+// device memory that the kernel reads, so that a CUDA graph that captured
+// the launch follows the step as the decode loop advances it.
 extern "C" int m2m_decode_attention_int8(
     const void* args, int pairs, const void* q, long long q_sb, long long q_sh,
     const void* kn, const void* vn, const void* kns, const void* vns,
-    const void* bias, int step, void* stream) {
+    const void* step, void* stream) {
     Int8AttnArgs a = *static_cast<const Int8AttnArgs*>(args);
     a.q = q;
     a.q_sb = q_sb;
     a.q_sh = q_sh;
     if (a.causal) {
+        if (step == nullptr) return static_cast<int>(cudaErrorInvalidValue);
         a.kn = static_cast<const int8_t*>(kn);
         a.vn = static_cast<const int8_t*>(vn);
         a.kns = static_cast<const float*>(kns);
         a.vns = static_cast<const float*>(vns);
-        a.bias = static_cast<const float*>(bias);
-        a.step = step;
-        a.n_keys = step + 1;
+        a.step = static_cast<const int*>(step);
     }
     return launch_int8(a, pairs, stream);
 }

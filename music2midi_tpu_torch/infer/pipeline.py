@@ -24,9 +24,21 @@ engine's knobs are attributes with its names and defaults:
 ``input_dither`` and ``mel_noise_floor``.
 
 Everything runs on ``device`` (``cuda`` unless the caller passes
-``device="cpu"``).  The one thread pool is ``generate_batch``'s, which
-loads its ``audio_paths`` ahead of the stream (4 workers, 8 songs ahead)
-and is shut down before the call returns.  Checkpoints: the npz export
+``device="cpu"``).  The decode loop of each batch is one captured program
+(``infer/decode.py``): the first batch of a bucket captures it, later ones
+replay it.  ``generate_batch`` splits the host's work from the card's, as
+the JAX engine's dispatcher does: the calling thread stacks, pads and
+transport-encodes each batch into one of two staging buffers (pinned
+memory on a card) in row slices on a persistent 2-thread pool, while one
+card thread of the call's own (``torch.no_grad``) uploads the batch before,
+runs it and copies its notes back: exactly one thread issues the card's
+work, and staging batch k + 1 overlaps the card's work on batch k.  The
+same call loads its ``audio_paths`` ahead of the stream (4 workers, 8 songs
+ahead); its threads end before it returns, and the staging pool when the
+engine is collected.  The staging buffers are the engine's, so two
+``generate_batch`` calls on one engine take turns (a lock over the
+stream), as two decodes of one bucket do (``infer/decode.py``).
+Checkpoints: the npz export
 (``from_npz``) and the reference's Lightning ``.ckpt``
 (``from_torch_checkpoint``), and the port's own training checkpoints and
 exports (``from_checkpoint``, through ``weights.py::restore_params``); an
@@ -37,10 +49,12 @@ raises).
 from __future__ import annotations
 
 import functools
+import threading
+import weakref
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -104,6 +118,17 @@ def _prefetched(pool: ThreadPoolExecutor, paths, sr: int):
         if nxt is not None:
             pending.append(pool.submit(audio.load, nxt, sr=sr))
         yield f.result()[0]
+
+
+_STAGE_WORKERS, _STAGE_SLICES = 2, 4  # generate_batch's staging pool
+
+
+class _Slot(NamedTuple):
+    """A staging buffer of ``generate_batch``: (max batch, split) host
+    samples in the transport dtype (pinned on a card), and ``free``, set
+    while no batch is staged in it or being uploaded from it."""
+    host: torch.Tensor
+    free: threading.Event
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -184,6 +209,10 @@ class Music2MIDI:
         # RMS of a fixed gaussian dither added to every chunk
         # (_chunk_waveform); 0.0 = off, the JAX engine's default
         self.input_dither: float = 0.0
+        # generate_batch's two staging buffers (_staging_slots), one call
+        # at a time
+        self._slots: Optional[List[_Slot]] = None
+        self._stream_lock = threading.Lock()
 
     @property
     def mel_noise_floor(self) -> float:
@@ -347,10 +376,71 @@ class Music2MIDI:
     def _device_wave(self, wave_chunks: np.ndarray) -> torch.Tensor:
         """(B, split) host chunks -> float32 wave on the device, through
         the mode's transport."""
-        wave = torch.from_numpy(self._encode_wave(wave_chunks)).to(self.device)
+        return self._transport_to_float(
+            torch.from_numpy(self._encode_wave(wave_chunks)).to(self.device))
+
+    @staticmethod
+    def _transport_to_float(wave: torch.Tensor) -> torch.Tensor:
         if not wave.is_floating_point():
             wave = wave.to(torch.float32) / 32768.0
         return wave
+
+    @functools.cached_property
+    def _stage_pool(self) -> ThreadPoolExecutor:
+        """Persistent 2-thread staging pool of ``generate_batch`` (the JAX
+        engine's ``_stage_pool``), shut down when the engine is
+        collected."""
+        pool = ThreadPoolExecutor(max_workers=_STAGE_WORKERS,
+                                  thread_name_prefix="m2m-stage")
+        weakref.finalize(self, pool.shutdown, wait=False)
+        return pool
+
+    def _staging_slots(self) -> List[_Slot]:
+        """The two staging buffers, made on first use by the thread that
+        drives the card (pinned memory is a CUDA allocation)."""
+        shape = (int(self.config.inference.batch_size), self._split_size())
+        if self._slots is None or tuple(self._slots[0].host.shape) != shape:
+            dtype = (torch.int16 if self.t5_config.dtype == torch.bfloat16
+                     else torch.float32)
+            pin = self.device.type == "cuda"
+            self._slots = [_Slot(torch.empty(shape, dtype=dtype,
+                                             pin_memory=pin),
+                                 threading.Event()) for _ in range(2)]
+        for slot in self._slots:
+            slot.free.set()
+        return self._slots
+
+    def _stage(self, slot: _Slot, rows: List[np.ndarray], b: int) -> None:
+        """Stack, zero-pad to ``b`` rows and transport-encode ``rows`` into
+        ``slot``'s buffer, in row slices on the staging pool (the JAX
+        engine's ``_stage_wave``); the values of ``_encode_wave`` over the
+        padded batch, row by row."""
+        out = slot.host.numpy()
+        n = len(rows)
+
+        def fill(lo: int, hi: int) -> None:
+            if lo < min(hi, n):
+                out[lo:min(hi, n)] = self._encode_wave(
+                    np.stack(rows[lo:min(hi, n)]))
+            if hi > max(lo, n):
+                out[max(lo, n):hi] = 0
+
+        if b < 2 * _STAGE_SLICES:
+            fill(0, b)
+            return
+        bounds = np.linspace(0, b, _STAGE_SLICES + 1, dtype=int)
+        list(self._stage_pool.map(fill, bounds[:-1], bounds[1:]))
+
+    def _upload(self, slot: _Slot, b: int) -> torch.Tensor:
+        """The first ``b`` staged rows -> float32 wave on the device; the
+        slot is free again once the copy has landed."""
+        try:
+            wave = slot.host[:b].to(self.device, non_blocking=True, copy=True)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+        finally:
+            slot.free.set()
+        return self._transport_to_float(wave)
 
     def _log_mel(self, wave: torch.Tensor) -> torch.Tensor:
         """The plain FFT mel in the parity mode; the serving mel (the CUDA
@@ -374,12 +464,15 @@ class Music2MIDI:
         return generate_tokens(self.model, encoder_hidden, self.t5_config,
                                self._dcfg(), generator)
 
-    def _encode_and_generate(self, wave_chunks: np.ndarray,
+    def _encode_and_generate(self, wave_chunks,
                              cond_index: np.ndarray,
                              generator: Optional[torch.Generator] = None):
-        """(B, split) chunks + (B, n_cond) conditioning -> (tokens, lengths)
-        on the device: log-mel -> conditioning -> encoder -> decode."""
-        mel = self._log_mel(self._device_wave(wave_chunks))
+        """(B, split) chunks (host samples, or the float32 wave already on
+        the device) + (B, n_cond) conditioning -> (tokens, lengths) on the
+        device: log-mel -> conditioning -> encoder -> decode."""
+        if isinstance(wave_chunks, np.ndarray):
+            wave_chunks = self._device_wave(wave_chunks)
+        mel = self._log_mel(wave_chunks)
         return self._decode(self._encoder(mel, cond_index), generator)
 
     # ------------------------------------------------------------------ #
@@ -428,10 +521,11 @@ class Music2MIDI:
             cond = np.asarray(cond_index, dtype=np.int64)
         return batch, np.broadcast_to(cond, (b, len(cond))).copy()
 
-    def _run_batch(self, batch: np.ndarray, cond: np.ndarray, n: int,
+    def _run_batch(self, batch, cond: np.ndarray, n: int,
                    generator: Optional[torch.Generator] = None
                    ) -> torch.Tensor:
-        """A bucket-padded batch whose first n rows are real -> their tokens
+        """A bucket-padded batch (host chunks or the device wave) whose
+        first n rows are real -> their tokens
         (n, width) on the device, the columns trimmed to the longest real
         row (the rest is PAD); appends the batch's decode stats."""
         tokens, lengths = self._encode_and_generate(batch, cond, generator)
@@ -523,10 +617,11 @@ class Music2MIDI:
         its own song.  ``audio_paths`` are loaded (``audio.load`` at the
         model rate) on a pool of 4 threads, at most 8 songs ahead of the
         stream and in input order, so that decoding and resampling overlap
-        the card's work on earlier songs.
-        ``last_decode_stats`` holds one entry per dispatched batch.  When
-        sampling, batch k draws from ``_sample_rng(k)``, as in the JAX
-        engine."""
+        the card's work on earlier songs.  This thread stages each batch
+        while the call's card thread runs the batch before
+        (``_generate_stream``).  ``last_decode_stats`` holds one entry
+        per dispatched batch.  When sampling, batch k draws from
+        ``_sample_rng(k)``, as in the JAX engine."""
         if (waveforms is None) == (audio_paths is None):
             raise ValueError("pass exactly one of waveforms / audio_paths")
         n_songs = len(waveforms if waveforms is not None else audio_paths)
@@ -549,50 +644,70 @@ class Music2MIDI:
                 pool.shutdown(wait=True, cancel_futures=True)
 
     def _generate_stream(self, waves, cond_indices) -> List[MidiFile]:
-        """``generate_batch`` over an iterator of waveforms."""
+        """``generate_batch`` over an iterator of waveforms: this thread
+        forms the batches and stages each into a free slot (``_stage``);
+        the call's card thread uploads, runs and detokenizes them in order
+        (``_card_batch``); results are collected in order, and the first
+        failed batch's exception is raised here.  Another thread's call
+        waits for this one."""
+        with self._stream_lock:
+            return self._generate_locked(waves, cond_indices)
+
+    def _generate_locked(self, waves, cond_indices) -> List[MidiFile]:
         max_bs = int(self.config.inference.batch_size)
-        n_steps = self._n_steps()
         n_cond = self.num_conditioning
         self.last_decode_stats = []
-        per_chunk: List[np.ndarray] = []
         spans: List[tuple] = []
         rows: List[np.ndarray] = []
         conds: List[np.ndarray] = []
         local_idx: List[int] = []
+        pending: list = []
+        card = ThreadPoolExecutor(max_workers=1, thread_name_prefix="m2m-card")
+        try:
+            slots = card.submit(self._staging_slots).result()
 
-        def dispatch():
-            n = len(rows)
-            b = _bucket(n, max_bs)
-            batch = np.zeros((b, rows[0].shape[0]), np.float32)
-            batch[:n] = np.stack(rows)
-            cond = np.zeros((b, n_cond), np.int64)
-            cond[:n] = np.stack(conds)
-            # batch k of the call draws from _sample_rng(k)
-            rng = self._sample_rng(len(self.last_decode_stats))
-            tokens = self._run_batch(batch, cond, n, rng)
-            start_idx = torch.as_tensor(local_idx, device=tokens.device) \
-                * n_steps
-            per_chunk.extend(detokenize_to_host(tokens, start_idx,
-                                                self.tokenizer.time_step))
-            rows.clear()
-            conds.clear()
-            local_idx.clear()
+            def dispatch():
+                for f in pending:  # stop staging once a batch has failed
+                    if f.done() and f.exception() is not None:
+                        f.result()
+                n = len(rows)
+                b = _bucket(n, max_bs)
+                slot = slots[len(pending) % len(slots)]
+                slot.free.wait()
+                slot.free.clear()
+                try:
+                    self._stage(slot, rows, b)
+                except BaseException:
+                    slot.free.set()
+                    raise
+                cond = np.zeros((b, n_cond), np.int64)
+                cond[:n] = np.stack(conds)
+                pending.append(card.submit(self._card_batch, slot, b, n, cond,
+                                           list(local_idx), len(pending)))
+                rows.clear()
+                conds.clear()
+                local_idx.clear()
 
-        n_total = 0
-        for wave, cond in zip(waves, cond_indices):
-            song_chunks = self._chunk_waveform(wave)
-            c = (np.zeros(n_cond, np.int64) if cond is None
-                 else np.asarray(cond, np.int64))
-            spans.append((n_total, n_total + len(song_chunks)))
-            n_total += len(song_chunks)
-            for k, row in enumerate(song_chunks):
-                rows.append(row)
-                conds.append(c)
-                local_idx.append(k)
-                if len(rows) == max_bs:
-                    dispatch()
-        if rows:
-            dispatch()
+            n_total = 0
+            for wave, cond in zip(waves, cond_indices):
+                song_chunks = self._chunk_waveform(wave)
+                c = (np.zeros(n_cond, np.int64) if cond is None
+                     else np.asarray(cond, np.int64))
+                spans.append((n_total, n_total + len(song_chunks)))
+                n_total += len(song_chunks)
+                for k, row in enumerate(song_chunks):
+                    rows.append(row)
+                    conds.append(c)
+                    local_idx.append(k)
+                    if len(rows) == max_bs:
+                        dispatch()
+            if rows:
+                dispatch()
+            per_chunk: List[np.ndarray] = []
+            for f in pending:
+                per_chunk.extend(f.result())
+        finally:
+            card.shutdown(wait=True, cancel_futures=True)
         out = []
         for start, end in spans:
             parts = per_chunk[start:end]
@@ -600,11 +715,25 @@ class Music2MIDI:
                 np.concatenate(parts) if parts else np.zeros((0, 4))))
         return out
 
+    def _card_batch(self, slot: _Slot, b: int, n: int, cond: np.ndarray,
+                    local_idx: List[int], k: int) -> List[np.ndarray]:
+        """On the card thread: upload a staged batch, run it (batch k of
+        the call draws from ``_sample_rng(k)``, as in the JAX engine) and
+        copy its per-chunk notes back."""
+        with torch.no_grad():
+            wave = self._upload(slot, b)
+            tokens = self._run_batch(wave, cond, n, self._sample_rng(k))
+            start_idx = torch.as_tensor(local_idx, device=tokens.device) \
+                * self._n_steps()
+            return detokenize_to_host(tokens, start_idx,
+                                      self.tokenizer.time_step)
+
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
         """Run each batch width a serving process will use once, on
         silence, before the first request: builds the CUDA kernels (at
-        their first use) and warms PyTorch's caching allocator and the
-        matmul libraries.  Per bucket b, a chunk count (default: every
+        their first use), captures the decode program of each batch
+        width and warms PyTorch's caching allocator and the matmul
+        libraries.  Per bucket b, a chunk count (default: every
         bucket up to ``inference.batch_size``, and that size itself), one
         silent song of b chunks through ``generate_batch`` and through
         ``generate``, as the JAX engine's warmup runs both of its

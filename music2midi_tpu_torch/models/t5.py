@@ -29,11 +29,14 @@ upcasting the (exact) compute-dtype operands to fp32.
 
 Decoding (``precompute_cross_kv``, ``init_kv_cache``, ``decode_step``)
 updates the self-attention KV cache IN PLACE, where the JAX package
-returns a new one, and attends over the written prefix ``[0, step]`` of
-the cache only.  That is the JAX package's causal mask (-1e9 on keys after
-``step``, which underflow to exactly zero probability) without the masked
-columns.  The cross-KV is not padded to a multiple of 128: that pad is a
-TPU lane-layout choice, and the unpadded keys give the same outputs.
+returns a new one, at a step held on the device (a 0-d int32 tensor), so
+that a step's launches do not depend on its position and a CUDA graph
+captures them (``infer/decode.py``).  The plain routes read a prefix of
+the cache of static length with the JAX package's causal mask (-1e9 on
+keys after ``step``, which underflow to exactly zero probability); the
+int8 kernel reads the step and only the keys up to it.  The cross-KV is
+not padded to a multiple of 128: that pad is a TPU lane-layout choice,
+and the unpadded keys give the same outputs.
 
 Serving options, as in the JAX package: ``prepare_decode_params(
 quantize_weights=True)`` stores every decode projection as int8 values
@@ -379,8 +382,7 @@ def attention(
     if bias is not None:
         scores = scores + bias.float()
     if mask is not None:
-        scores = torch.where(mask, scores, torch.tensor(-1e9, dtype=torch.float32,
-                                                        device=scores.device))
+        scores = torch.where(mask, scores, -1e9)
     probs = torch.softmax(scores, dim=-1).to(dtype)
     probs = dropout(probs, dropout_rate, generator)
     return torch.matmul(probs.float(), v.float()).to(dtype)
@@ -578,8 +580,7 @@ def _attention_int8(
     if bias is not None:
         scores = scores + bias.float()
     if mask is not None:
-        scores = torch.where(mask, scores, torch.tensor(-1e9, dtype=torch.float32,
-                                                        device=scores.device))
+        scores = torch.where(mask, scores, -1e9)
     probs = torch.softmax(scores, dim=-1)
     probs = (probs * v_scale).to(dtype)
     return torch.matmul(probs.float(), v8.float()).to(dtype)
@@ -721,18 +722,20 @@ def int8_attention_plan(kv_cache: list, cross_kv: CrossKV,
                              round_pv=True, dtype=dtype)
 
 
-def _write_kv(entry, new: torch.Tensor, step: int, bits: int):
+def _write_kv(entry, new: torch.Tensor, pos: torch.Tensor, bits: int):
     """Write this step's (B, H, 1, D) K or V row into a cache entry, in
-    place: a plain buffer, or an int8 (values, scales) pair (the row is
-    quantized with its own per-(B, H) scale, ``bits`` wide).  -> the
-    quantized row and its scale for an int8 entry, else None."""
+    place, at the position ``pos`` holds (a (1,) int64 tensor on the
+    cache's device, so that the write follows a step kept on the device):
+    a plain buffer, or an int8 (values, scales) pair (the row is quantized
+    with its own per-(B, H) scale, ``bits`` wide).  -> the quantized row
+    and its scale for an int8 entry, else None."""
     if isinstance(entry, tuple):
         vals, scales = entry
         q8, s = _quantize_kv(new, bits)
-        vals[:, :, step:step + 1] = q8
-        scales[:, :, :, step:step + 1] = s
+        vals.index_copy_(2, pos, q8)
+        scales.index_copy_(3, pos, s)
         return q8, s
-    entry[:, :, step:step + 1] = new
+    entry.index_copy_(2, pos, new)
     return None
 
 
@@ -744,20 +747,37 @@ def _prefix(entry, n: int):
     return entry[:, :, :n]
 
 
+def _cache_length(kv_cache: list) -> int:
+    entry = kv_cache[0][0]
+    return (entry[0] if isinstance(entry, tuple) else entry).shape[2]
+
+
 @torch.no_grad()
 def decode_step(
     dparams: dict,  # prepare_decode_params output
     token: torch.Tensor,  # (B,) current input token
-    step: int,  # position of `token`
+    step,  # position of `token`: a 0-d int32 tensor on the device, or an int
     kv_cache: KVCache,  # init_kv_cache(...)
     cross_kv: CrossKV,
     cfg: T5Config,
     bias_rows: torch.Tensor,  # decoder_bias_rows(...)
     plan: Optional[Int8AttentionPlan] = None,  # int8_attention_plan(...)
+    cache_len: Optional[int] = None,
 ) -> torch.Tensor:
     """One incremental decoder step -> logits (B, vocab).  Writes this
     step's K/V into ``kv_cache`` at ``step`` (quantized at the cache's
     ``bits``) and attends over [0, step].
+
+    ``step`` lives on the device (a host int is written to a device
+    scalar first), and nothing in the step reads it back: the cache
+    write is an ``index_copy_`` at the step, the plain attention routes
+    read a prefix of static length ``cache_len`` (default: the whole
+    cache; it must exceed ``step``) with the keys after the step masked
+    to -1e9, which underflows to a probability of exactly 0, and the
+    position bias gathered by the step, as the JAX ``decode_step`` reads
+    its phase's cache; the int8 kernel reads the step itself.  So the
+    step's work is the same launches at every step, and a CUDA graph
+    captures it (``infer/decode.py``).
 
     Routes, as the JAX ``decode_step``: with a ``plan`` (built over these
     caches by ``int8_attention_plan``; JAX's ``use_pallas``) an int8 self
@@ -773,25 +793,36 @@ def decode_step(
     place, never copies."""
     dt = cfg.dtype
     H, D = cfg.num_heads, cfg.d_kv
+    dev = token.device
+    if not isinstance(step, torch.Tensor):
+        step = torch.full((), int(step), dtype=torch.int32, device=dev)
+    pos = step.view(1).long()
     x = dparams["embedding"][token][:, None]  # (B, 1, d_model)
-    n = step + 1
-    L = bias_rows.shape[1]
-    bias_2d = bias_rows[:, L - n:]  # (H, n): key j at column j
-    bias_row = bias_2d[None, :, None, :]  # (1, H, 1, n)
+    int8_self = isinstance(kv_cache[0][0], tuple)
+    if plan is None or not int8_self:
+        # the plain routes: keys 0..c-1, those after the step masked, the
+        # bias of key j at step s from column L - 1 - s + j of the rows
+        c = _cache_length(kv_cache) if cache_len is None else int(cache_len)
+        L = bias_rows.shape[1]
+        keys = torch.arange(c, device=dev)
+        cols = (keys + (L - 1) - step).clamp_(max=L - 1)
+        bias_row = bias_rows.index_select(1, cols)[None, :, None, :]
+        mask = (keys <= step)[None, None, None, :]
     for i, layer in enumerate(dparams["layers"]):
         h = rms_norm(x, layer["ln1"], cfg.layer_norm_epsilon)
         qkv = _proj(h, layer["sa_qkv"], dt)
         q, k_new, v_new = (_split_heads(p, H, D) for p in qkv.chunk(3, dim=-1))
         k_entry, v_entry = kv_cache[i]
-        k_newq = _write_kv(k_entry, k_new, step, kv_cache.bits)
-        v_newq = _write_kv(v_entry, v_new, step, kv_cache.bits)
-        k_seen, v_seen = _prefix(k_entry, n), _prefix(v_entry, n)
+        k_newq = _write_kv(k_entry, k_new, pos, kv_cache.bits)
+        v_newq = _write_kv(v_entry, v_new, pos, kv_cache.bits)
         if k_newq is not None and plan is not None:
             h = plan.causal(i, q, k_newq, v_newq, step)
         elif k_newq is not None:
-            h = _attention_int8(q, k_seen, v_seen, bias_row, None, dt)
+            h = _attention_int8(q, _prefix(k_entry, c), _prefix(v_entry, c),
+                                bias_row, mask, dt)
         else:
-            h = attention(q, k_seen, v_seen, bias_row, None, dt)
+            h = attention(q, _prefix(k_entry, c), _prefix(v_entry, c),
+                          bias_row, mask, dt)
         x = x + _proj(_merge_heads(h), layer["sa_o"], dt)
         h = rms_norm(x, layer["ln2"], cfg.layer_norm_epsilon)
         q = _split_heads(_proj(h, layer["ca_q"], dt), H, D)

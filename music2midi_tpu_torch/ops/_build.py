@@ -44,10 +44,9 @@ _SIGNATURES = {
     "m2m_log_mel_fft": [_c_void_p] * 9 + [_c_int] * 6 + [_c_float, _c_void_p],
     "m2m_log_mel_dft": [_c_void_p] * 9 + [_c_int] * 6 + [_c_float, _c_void_p],
     # (argument block, (b, h) pairs, q, q_sb, q_sh, fresh k, v, k scale,
-    # v scale, bias window, step, stream)
+    # v scale, the step's int32 on the card, stream)
     "m2m_decode_attention_int8": [_c_void_p, _c_int, _c_void_p, _c_int64,
-                                  _c_int64] + [_c_void_p] * 5
-                                 + [_c_int, _c_void_p],
+                                  _c_int64] + [_c_void_p] * 6,
     # (pointer to the argument struct, number of blocks, stream)
     "m2m_decode_attention_cross_t": [_c_void_p, _c_int, _c_void_p],
 }

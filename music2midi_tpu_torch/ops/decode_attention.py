@@ -40,9 +40,13 @@ A CUDA tensor goes to the hand-written kernel in
 a failed launch raises; a CPU tensor goes to the plain PyTorch version
 beside it (``*_plain``).  The tensor's device decides.  The decode loop
 calls the int8 kernel through ``Int8AttentionPlan``, which checks and
-packs a generation's caches once, so that a call costs the host a few
+packs a program's caches once, so that a call costs the host a few
 microseconds where ``decode_attention_int8`` checks and packs every
-operand on every call.
+operand on every call.  The causal kernel reads the step from an int32 in
+device memory (the plan takes the decode loop's device step; the public
+function writes its host step to one), so a CUDA graph that captured the
+plan's launches replays them at every step.  Neither kernel allocates or
+reads back anything, so both are captured as they are.
 
 The port writes this step's row into the self cache before the call, so
 the fresh-row patch of the causal kernel recomputes a value that is
@@ -56,7 +60,13 @@ q and output (71.4 MB, 21 us, at n = 1023); its 4 B H n D flops take 2 us
 at the 67 TFLOP/s fp32 rate.  Cross attention at L = 190 moves 13.4 MB,
 4 us (``chip_smoke.py`` computes both bounds).  The decode loop calls 12
 of these per step; one launch replaces the ~10 launches of the plain
-chain, which is what the loop, bound by the host's launches, gains.
+chain, in a step that the captured loop replays as one graph.
+
+The causal and cross kernels sum the scores and the softmax in the order
+of the plain route that the engine's tokens are held against on the card
+(``models/t5.py::_attention_int8`` through cuBLAS and ``torch.softmax``;
+``csrc/decode_attention.cu`` says which), so that both round ``p * vs``
+alike.
 """
 
 from __future__ import annotations
@@ -211,11 +221,11 @@ def _struct(name: str, pointers: str, strides: str, ints: str):
 # field order and types match Int8AttnArgs / CrossTArgs field for field
 _Int8Args = _struct(
     "Int8AttnArgs",
-    "q k v ks vs bias kn vn kns vns out",
+    "q k v ks vs bias kn vn kns vns step out",
     "q_sb q_sh k_sb k_sh k_sl v_sb v_sh v_sl ks_sb ks_sh ks_sl "
     "vs_sb vs_sh vs_sl bias_sh bias_sl kn_sb kn_sh vn_sb vn_sh "
     "kns_sb kns_sh vns_sb vns_sh",
-    "H n_keys step causal round_pv q_f32",
+    "H n_keys causal round_pv q_f32",
 )
 _CrossTArgs = _struct(
     "CrossTArgs",
@@ -319,9 +329,12 @@ def _pack_int8(k_entry: Entry, v_entry: Entry, n_keys: int, causal: bool,
                round_pv: bool, out: torch.Tensor):
     """Check int8 K/V buffers and their scales as the kernel reads them
     (16-byte rows through their strides, f32 scales at any stride) and pack
-    the argument fields they fix; q, the fresh rows, the bias and the step
-    are set per launch.  ``out``'s dtype, bf16 or f32, picks the kernel's
-    instance, and q must have the same."""
+    the argument fields they fix; q, the fresh rows and the step's address
+    are set per launch.  ``n_keys``: the visible keys (cross), or the keys
+    a causal launch may see, which bounds its step and sizes its shared
+    memory; the causal bias row holds key j of step s at column
+    ``n_keys - s - 1 + j``.  ``out``'s dtype, bf16 or f32, picks the
+    kernel's instance, and q must have the same."""
     k8, ks = k_entry
     v8, vs = v_entry
     _check_int8("k", k8, 4)
@@ -339,18 +352,19 @@ def _pack_int8(k_entry: Entry, v_entry: Entry, n_keys: int, causal: bool,
         v_sb=v8.stride(0), v_sh=v8.stride(1), v_sl=v8.stride(2),
         ks_sb=ks.stride(0), ks_sh=ks.stride(1), ks_sl=ks.stride(3),
         vs_sb=vs.stride(0), vs_sh=vs.stride(1), vs_sl=vs.stride(3),
-        H=H, n_keys=n_keys, step=-1, causal=int(causal),
+        H=H, n_keys=n_keys, causal=int(causal),
         round_pv=int(round_pv), q_f32=int(out.dtype == torch.float32),
     )
 
 
 def _launch_int8(args: int, pairs: int, q: torch.Tensor, q_strides,
-                 fresh: tuple, bias: int, step: int, stream: int) -> None:
+                 fresh: tuple, step: int, stream: int) -> None:
     """One launch on a packed argument block (its address): the pointers
-    of q, the fresh rows (k, v, k scale, v scale) and the bias window."""
+    of q, the fresh rows (k, v, k scale, v scale) and the step (an int32
+    on the card, read by the kernel; 0 for cross attention)."""
     _build.check(_build.load().m2m_decode_attention_int8(
-        args, pairs, q.data_ptr(), q_strides[0], q_strides[1], *fresh, bias,
-        step, stream), "m2m_decode_attention_int8")
+        args, pairs, q.data_ptr(), q_strides[0], q_strides[1], *fresh, step,
+        stream), "m2m_decode_attention_int8")
     decode_attention_int8.launches += 1
 
 
@@ -378,9 +392,12 @@ def decode_attention_int8(
     strides: keys 0..step (causal; key ``step`` from the fresh row) or
     0..enc_len-1 (cross), so a caller may pass a whole ``max_length``
     cache buffer.  ``bias`` is indexed by key position
-    (``bias[h, j]`` for key j) and may be a strided view.  Every call
-    checks and packs all of its operands; the decode loop calls the kernel
-    through an ``Int8AttentionPlan``, which does that once a generation."""
+    (``bias[h, j]`` for key j) and may be a strided view.  The host
+    ``step`` is written to an int32 on the card, which the kernel reads
+    (the decode loop's launch plan passes its own device step).  Every
+    call checks and packs all of its operands; the decode loop calls the
+    kernel through an ``Int8AttentionPlan``, which does that once a
+    program."""
     if q.device.type != "cuda":
         return decode_attention_int8_plain(q, k_entry, v_entry, bias, step,
                                            new_k, new_v, causal, enc_len,
@@ -393,7 +410,7 @@ def decode_attention_int8(
     a = _pack_int8(k_entry, v_entry, n_keys, causal, round_pv, out)
     qb = _query(q, B, H, D, dt)
     _on_card(qb, out)
-    fresh, bias_ptr = (0, 0, 0, 0), 0
+    fresh, step_dev = (0, 0, 0, 0), None
     if causal:
         b2 = _bias_2d(bias)
         if b2.dtype != torch.float32:
@@ -418,11 +435,13 @@ def decode_attention_int8(
         a.vns_sb, a.vns_sh = vns.stride()[:2]
         fresh = (kn8.data_ptr(), vn8.data_ptr(), kns.data_ptr(),
                  vns.data_ptr())
-        bias_ptr = b2.data_ptr()
+        a.bias = b2.data_ptr()  # n_keys = step + 1: key j at column j
+        step_dev = torch.full((), n_keys - 1, dtype=torch.int32,
+                              device=q.device)
     if B * H:
         _launch_int8(ctypes.addressof(a), B * H, qb, qb.stride(), fresh,
-                     bias_ptr, n_keys - 1, torch.cuda.current_stream(
-                         q.device).cuda_stream)
+                     0 if step_dev is None else step_dev.data_ptr(),
+                     torch.cuda.current_stream(q.device).cuda_stream)
     return out.to(q.dtype)
 
 
@@ -440,19 +459,30 @@ class Int8AttentionPlan:
     ``decode_step`` calls ``causal(i, q, new_k, new_v, step)`` for layer
     i's self block (keys 0..step, key ``step`` from the fresh rows, the
     bias window ``bias_rows[:, L - step - 1:]``) and ``cross(i, q)`` for
-    its cross block (keys < ``enc_len``).  On the card a call checks only
-    what moves (q: (B, H, 1, D) of ``dtype`` with 16-byte aligned rows;
-    the fresh rows: contiguous, as ``_quantize_kv`` makes them; the
-    step), and makes
-    one C call that sets q, the fresh rows, the bias window and the step
-    on the packed argument block and launches on the current stream.  The
-    output goes to a buffer of the plan's, one per (layer, block), valid
-    until that block is called again: the decode loop consumes it at
-    once.  Nothing is read back and nothing allocated per call, so a CUDA
-    graph could capture the calls.  On CPU tensors a call runs the plain
-    version over the views that ``decode_attention_int8`` would be given
-    (the cache's first step + 1 keys, the bias window), so the two agree
-    bit for bit.  Launches count in ``decode_attention_int8.launches``."""
+    its cross block (keys < ``enc_len``).  ``step`` is a 0-d int32 tensor
+    on the plan's device, whose address the launch takes: the kernel reads
+    the step there, computes its visible keys and bias window from it, and
+    writes NaN for a step outside the cache, so that a CUDA graph that
+    captured the calls follows the step as the decode loop advances it.
+    A host int is also taken (checked against the cache's length and
+    written to a device scalar of the plan's).  The kernel's shared memory
+    is sized once, for the cache's length.  On the card a call checks
+    only what moves (q: (B, H, 1, D) of ``dtype`` with 16-byte aligned
+    rows; the fresh rows: contiguous, as ``_quantize_kv`` makes them; the
+    step's type and device), and makes one C call that sets q, the fresh
+    rows and the step's address on the packed argument block and launches
+    on the current stream.  The output goes to a buffer of the plan's,
+    one per (layer, block), valid until that block is called again: the
+    decode loop consumes it at once.  Nothing is read back and nothing
+    allocated per call, so a CUDA graph captures the calls.  On CPU
+    tensors a call runs the plain version over the views that
+    ``decode_attention_int8`` would be given (the cache's first step + 1
+    keys, the bias window), so the two agree bit for bit.  Launches count
+    in ``decode_attention_int8.launches``.
+
+    ``bias_rows`` is kept as it is given when it is float32 and
+    contiguous (else as a float32 contiguous copy): a caller that owns
+    such rows may refill them in place between generations."""
 
     def __init__(self, self_cache: list, bias_rows: torch.Tensor,
                  cross_layers: Optional[list] = None, enc_len: int = 0,
@@ -469,9 +499,9 @@ class Int8AttentionPlan:
                 tuple(bias_rows.shape) != (H, L):
             raise ValueError(f"bias rows: needs float32 or bfloat16 {(H, L)}, "
                              f"got {bias_rows.dtype} {tuple(bias_rows.shape)}")
-        # once a generation: float32 (exact from bf16), and contiguous, so
-        # that the kernel's copies of a window's values are coalesced (the
-        # engine's rows are a transposed view, keys 8 floats apart)
+        # float32 (exact from bf16), and contiguous, so that the kernel's
+        # copies of a window's values are coalesced (the engine's rows are
+        # a transposed view, keys 8 floats apart); no copy when they are
         bias_rows = bias_rows.float().contiguous()
         self.device, self.length, self.round_pv = k8.device, L, round_pv
         self.dtype = dtype
@@ -497,10 +527,11 @@ class Int8AttentionPlan:
                 if causal:  # the fresh rows' layout, checked per call
                     a.kn_sb, a.kn_sh, a.kns_sb, a.kns_sh = H * D, D, H, 1
                     a.vn_sb, a.vn_sh, a.vns_sb, a.vns_sh = H * D, D, H, 1
+                    a.bias = bias_rows.data_ptr()
                     a.bias_sh, a.bias_sl = bias_rows.stride()
             return outs, args
 
-        self._self_out, self._self_args = pack(self._self, True, 1,
+        self._self_out, self._self_args = pack(self._self, True, L,
                                                (B, H, L, D))
         self._cross_out, self._cross_args = pack(self._cross, False,
                                                  self.enc_len, (B, H, Lc, D))
@@ -514,9 +545,9 @@ class Int8AttentionPlan:
                                    for a in self._self_args],
                           "cross": [ctypes.addressof(a)
                                     for a in self._cross_args]}
-            # the bias window of step s starts L - s - 1 columns in
-            self._bias_end = bias_rows.data_ptr() + 4 * L * bias_rows.stride(1)
-            self._bias_col = 4 * bias_rows.stride(1)
+            # where a host step is written for the kernel to read
+            self._host_step = torch.zeros((), dtype=torch.int32,
+                                          device=self.device)
             # the current stream's handle, read on every call (a capture
             # or a caller's stream context changes it); cheaper than
             # torch.cuda.current_stream, which builds a Stream object
@@ -532,19 +563,33 @@ class Int8AttentionPlan:
                              f"{q.dtype} {tuple(q.shape)} {sq} on {q.device}")
         return sq
 
-    def causal(self, i: int, q: torch.Tensor, new_k: Entry, new_v: Entry,
-               step: int) -> torch.Tensor:
-        """Layer i's self block at ``step`` -> (B, H, 1, D) of ``dtype``."""
+    def _check_host_step(self, step: int) -> None:
         if not 0 <= step < self.length:
             raise ValueError(f"step {step} outside the cache length "
                              f"{self.length}")
+
+    def causal(self, i: int, q: torch.Tensor, new_k: Entry, new_v: Entry,
+               step) -> torch.Tensor:
+        """Layer i's self block at ``step`` (a 0-d int32 tensor on the
+        plan's device, or a host int) -> (B, H, 1, D) of ``dtype``."""
         if self.device.type != "cuda":
-            n = step + 1
+            n = int(step) + 1
+            self._check_host_step(n - 1)
             (k8, ks), (v8, vs) = self._self[i]
             return decode_attention_int8_plain(
                 q, (k8[:, :, :n], ks[..., :n]), (v8[:, :, :n], vs[..., :n]),
-                self._bias_rows[:, self.length - n:], step, new_k, new_v,
+                self._bias_rows[:, self.length - n:], n - 1, new_k, new_v,
                 True, 0, self.round_pv)
+        if isinstance(step, torch.Tensor):
+            if step.dtype != torch.int32 or step.numel() != 1 or \
+                    step.get_device() != self._index:
+                raise ValueError(f"step: needs a 0-d int32 tensor on "
+                                 f"{self.device}, got {step.dtype} "
+                                 f"{tuple(step.shape)} on {step.device}")
+        else:
+            self._check_host_step(int(step))
+            self._host_step.fill_(int(step))
+            step = self._host_step
         sq = self._q_strides(q)
         fresh = (new_k[0], new_v[0], new_k[1], new_v[1])
         ptrs = tuple(t.data_ptr() for t in fresh)
@@ -555,8 +600,7 @@ class Int8AttentionPlan:
                                  f"aligned {want} on {self.device}, got "
                                  f"{t.dtype} {tuple(t.shape)} {t.stride()}")
         _launch_int8(self._addr["self"][i], self._pairs, q, sq, ptrs,
-                     self._bias_end - (step + 1) * self._bias_col, step,
-                     self._stream(self._index))
+                     step.data_ptr(), self._stream(self._index))
         return self._self_out[i]
 
     def cross(self, i: int, q: torch.Tensor) -> torch.Tensor:
@@ -567,7 +611,7 @@ class Int8AttentionPlan:
                                                None, False, self.enc_len,
                                                self.round_pv)
         _launch_int8(self._addr["cross"][i], self._pairs, q,
-                     self._q_strides(q), (0, 0, 0, 0), 0, -1,
+                     self._q_strides(q), (0, 0, 0, 0), 0,
                      self._stream(self._index))
         return self._cross_out[i]
 

@@ -484,3 +484,129 @@ def test_batcher_on_card_gives_generate_batch_notes(card):
              for n in w.instruments[0].notes]
     assert sum(len(m.instruments[0].notes) for m in got) > 0
     assert thread_peak <= main_peak
+
+
+@pytest.mark.parametrize("round_pv", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 64, 65, 128, 129, 255, 256, 257, 512,
+                               1023, 1024])
+def test_int8_causal_kernel_device_step_at_key_group_boundaries(card, n,
+                                                                round_pv):
+    """Kernel 3 through a launch plan over a 1024-long cache, its step
+    read from device memory (keys 0..n-1), at the edges of its key groups:
+    2e-2 against the plain version over the prefix and the bias window,
+    bit for bit the host step's call, one launch a call; junk past the
+    visible keys (bytes, scales, the bias row's columns before the window)
+    changes nothing; a step past the cache writes NaN."""
+    L = 1024
+    q, k, v, kn, vn, bias = _int8_inputs(card, L, n)
+    rows = bias[0, :, 0, :]
+    plan = da.Int8AttentionPlan([(k, v)], rows, round_pv=round_pv)
+    step = torch.full((), n - 1, dtype=torch.int32, device=card)
+    before = da.decode_attention_int8.launches
+    got = plan.causal(0, q, kn, vn, step).clone()
+    assert da.decode_attention_int8.launches == before + 1
+    _close(got, da.decode_attention_int8_plain(
+        q, (k[0][:, :, :n], k[1][..., :n]), (v[0][:, :, :n], v[1][..., :n]),
+        rows[:, L - n:], n - 1, kn, vn, causal=True, round_pv=round_pv))
+    _close(plan.causal(0, q, kn, vn, n - 1).clone(), got, 0.0)
+    for t in (k[0], v[0]):
+        t[:, :, n:] = 127
+    for t in (k[1], v[1]):
+        t[..., n:] = 1e3
+    rows[:, :L - n] = 1e3
+    _close(plan.causal(0, q, kn, vn, step).clone(), got, 0.0)
+    step.fill_(L)
+    out = plan.causal(0, q, kn, vn, step)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(out.float()).all())
+
+
+@pytest.mark.parametrize("route", ["serving", "pallas_cross", "unroll=8",
+                                   "sampling", "fp32"])
+def test_captured_decode_equals_eager_on_card(card, route):
+    """The decode loop as one captured program (``generate_tokens``: the
+    first call captures, the second replays) against its eager twin on the
+    calibration fixture's encoder output: tokens and lengths equal bit for
+    bit; the replay counts kernel 3's launches, 12 a step (6, beside 6 of
+    kernel 4, under ``pallas_cross``; none in fp32)."""
+    from music2midi_tpu_torch.audio import resample
+    from music2midi_tpu_torch.calibration import render_fixture
+    from music2midi_tpu_torch.infer import Music2MIDI
+    from music2midi_tpu_torch.infer.decode import (
+        generate_tokens,
+        generate_tokens_eager,
+    )
+
+    wav, sr = render_fixture()
+    engine = Music2MIDI.from_npz(RECORD, dtype=torch.float32
+                                 if route == "fp32" else torch.bfloat16)
+    if route == "pallas_cross":
+        engine.pallas_cross = True
+    elif route == "unroll=8":
+        engine.unroll = 8
+    elif route == "sampling":
+        engine.temperature, engine.top_k, engine.sample_seed = 1.0, 10, 5
+    batch, cond = engine._pad_batch(engine._chunk_waveform(
+        resample(wav, sr, 16000)))
+    enc = engine._encoder(engine._log_mel(engine._device_wave(batch)), cond)
+    dcfg = engine._dcfg()
+    want_t, want_l = generate_tokens_eager(engine.model, enc,
+                                           engine.t5_config, dcfg,
+                                           engine._sample_rng(0))
+    for _ in range(2):
+        before = (da.decode_attention_int8.launches,
+                  da.decode_attention_cross_t.launches)
+        got_t, got_l = generate_tokens(engine.model, enc, engine.t5_config,
+                                       dcfg, engine._sample_rng(0))
+        torch.cuda.synchronize()
+        assert torch.equal(got_t, want_t) and torch.equal(got_l, want_l)
+        steps = int(want_l.max()) - 1
+        run = -(-steps // dcfg.unroll) * dcfg.unroll
+        int8 = da.decode_attention_int8.launches - before[0]
+        cross_t = da.decode_attention_cross_t.launches - before[1]
+        if route == "fp32":
+            assert (int8, cross_t) == (0, 0)
+        elif route == "pallas_cross":
+            assert (int8, cross_t) == (6 * run, 6 * run)
+        else:
+            assert (int8, cross_t) == (12 * run, 0)
+
+
+# ROADMAP C1: on chip_smoke.py's song (the model of record in bf16, int8
+# KV) the kernel route agrees with plain _attention_int8 on the card on
+# 0.971503 of greedy tokens (tools/song_agreement.py, H100); the bar is a
+# floor just under that reading.  Against the JAX engine's decode of the
+# same encoder output (tools/c1_distance.py) the kernel route reads
+# 0.747850 and the plain route 0.739404.
+C1_BAR = 0.96
+
+
+def test_kernel_route_holds_the_c1_bar_on_the_song(card):
+    """The song's encoder output (``chip_smoke.py``'s synthetic 3-minute
+    song, seed 7, through the serving mel kernel and the bf16 encoder)
+    decoded by the kernel route (kernel 3 with ``round_pv``) and by plain
+    ``_attention_int8``: greedy-token agreement, each row compared up to
+    the longer of its two lengths, at least ``C1_BAR``."""
+    import sys
+
+    from music2midi_tpu_torch.infer import Music2MIDI
+    from music2midi_tpu_torch.infer.decode import generate_tokens
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from chip_smoke import synthetic_song
+
+    engine = Music2MIDI.from_npz(RECORD, dtype=torch.bfloat16)
+    chunks = engine._chunk_waveform(synthetic_song(180.0, 16000, seed=7))
+    batch, cond = engine._pad_batch(chunks)
+    enc = engine._encoder(engine._log_mel(engine._device_wave(batch)), cond)
+    runs = [generate_tokens(engine.model, enc, engine.t5_config,
+                            engine._dcfg()._replace(pallas_attention=on))
+            for on in (True, False)]
+    (t_k, l_k), (t_p, l_p) = [(t.cpu().numpy(), n.cpu().numpy())
+                              for t, n in runs]
+    same = total = 0
+    for r in range(len(chunks)):
+        m = int(max(l_k[r], l_p[r]))
+        same += int((t_k[r, :m] == t_p[r, :m]).sum())
+        total += m
+    assert same / total >= C1_BAR, (same, total)

@@ -17,6 +17,13 @@ a CUDA card; from the repo root:
     python3 tools/song_agreement.py --mel plain
     python3 tools/song_agreement.py --root OTHER --mel kernel --save-mel o.npy
     python3 tools/song_agreement.py --mel o.npy
+    python3 tools/song_agreement.py --save-encoder chiprun_out/enc.npz
+
+``--save-encoder`` writes the encoder output of the song's real chunks
+(bf16, stored as its uint16 bits), the conditioning and each route's
+tokens and lengths to an npz, so that the same encoder output can be
+decoded elsewhere (``tools/c1_distance.py`` decodes it through the JAX
+engine on the CPU).
 
 Prints the card's name and power limit, then one JSON line.
 """
@@ -41,6 +48,9 @@ def main() -> int:
     ap.add_argument("--mel", default="kernel",
                     help="'kernel', 'plain' or a .npy file of a saved mel")
     ap.add_argument("--save-mel", help="write the mel used to this .npy")
+    ap.add_argument("--save-encoder",
+                    help="write the encoder output and both routes' "
+                         "tokens to this .npz")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
     import numpy as np
@@ -84,6 +94,15 @@ def main() -> int:
             engine._dcfg()._replace(pallas_attention=on))
         runs[on] = (toks.cpu().numpy(), lens.cpu().numpy())
     (t_off, l_off), (t_on, l_on) = runs[False], runs[True]
+    if args.save_encoder:
+        real = len(chunks)
+        Path(args.save_encoder).parent.mkdir(parents=True, exist_ok=True)
+        np.savez(args.save_encoder,
+                 encoder_bf16_bits=enc[:real].contiguous().view(
+                     torch.int16).cpu().numpy().view(np.uint16),
+                 cond=cond[:real], tokens_kernel=t_on[:real],
+                 lengths_kernel=l_on[:real], tokens_plain=t_off[:real],
+                 lengths_plain=l_off[:real])
     agree = total = 0
     for r in range(len(chunks)):
         m = int(max(l_off[r], l_on[r]))
