@@ -87,12 +87,30 @@ and exits non-zero, and nothing is caught and passed over:
      songs, 1 group of 1 trial and 1 latency trial, then its secondary
      forced-256 run on the same songs: songs/min, p50 latency, ``mfu``
      (required non-null on an H100), ``mfu_executed``, tokens, notes;
-  12. training (``music2midi_tpu_torch.train``, no kernel on its path: the
+  12. data prep, with the port alone in a temporary directory, each stage
+     a ``python3 -m music2midi_tpu_torch.<module>`` subprocess: the chain
+     (``data.synthesize_corpus``: 8 songs of 40 s, the clean profile;
+     ``data.align_audio_midi``, ``data.midi_to_numpy``,
+     ``data.compute_metrics``, ``data.generate_split``: at least 3 songs
+     pass the filters), each stage's seconds, the split's sizes; the C++
+     DSP library built (``native.available()``); the loader over the
+     train split with augmentation on, 4 workers, 64 windows an epoch:
+     thread workers (required: the loader's own choice) against spawned
+     processes, windows/s, the first batch's seconds and their difference
+     (the spawn), and one process's windows/s with the C++ and the numpy
+     pitch shift; the train CLI for 4 bf16 steps from the model of record
+     (its loader on threads), ``tools.export_npz`` of its checkpoint,
+     ``tools.calibration_check`` on the model of record and the export
+     (both PASS); ``evaluate``'s ``main`` (what ``-m`` runs) on the test
+     split in bf16, kernels 1 and 3 launched, its mean score and chunks
+     at the cap, and a test song's transcription with notes.  The
+     training and entry-point phases read this corpus;
+  13. training (``music2midi_tpu_torch.train``, no kernel on its path: the
      JAX trainer runs outside Pallas, and the counts of all four kernels
-     must stay 0): a corpus of 4 synthetic 30-s songs written as the
-     data-prep chain writes one (the train split lists each song 16 times,
-     so an epoch holds 4 batches of 16 random 3-s windows), read through
-     the port's dataset and loader with augmentation on (spawned workers);
+     must stay 0): data prep's train split, its songs in turn (an epoch
+     holds 4 batches of 16 random 3-s windows), read through the port's
+     dataset and loader with augmentation on (thread workers, the C++
+     pitch shift);
      one fp32 step from the model of record with dropout 0 on the card
      and on the CPU (loss within 1e-4 relative, update cosine >= 0.999;
      fp32 matmuls without TF32, PyTorch's default); 3 warm-up and 20
@@ -104,7 +122,7 @@ and exits non-zero, and nothing is caught and passed over:
      ``Music2MIDI.from_npz`` through the calibration gate; and the train
      CLI (``python3 -m music2midi_tpu_torch.train``'s ``main``) for 4
      bf16 steps from the model of record with ``--eval_in_train``;
-  13. entry points, in a temporary working directory, through what a user
+  14. entry points, in a temporary working directory, through what a user
      runs (the model of record, bf16 unless said): (a)
      ``music2midi_tpu_torch.serve_batch``'s ``main`` on 4 synthetic 60-s
      songs written as 16-kHz WAVs: every song has notes, its MIDI file is
@@ -118,19 +136,20 @@ and exits non-zero, and nothing is caught and passed over:
      kernels 1 and 3 launched; the dispatcher thread's peak memory is at
      most 1.05x one main-thread ``generate_batch`` of all 4 songs; the
      latencies are printed; (c) ``music2midi_tpu_torch.evaluate``'s
-     ``main`` on the training phase's corpus in fp32 (no kernel launched,
+     ``main`` on data prep's corpus in fp32 (no kernel launched,
      the parity mode) and bf16 (kernels 1 and 3): one CSV row per test
      id, scores in [0, 1], the mean score and the chunks at the token
      cap printed; (d) with ``ffmpeg`` on the machine, a FLAC made of a
      song's WAV loads equal to the WAV within 1/32768; without it,
      ``audio.load`` of an mp3 raises the JAX package's ``ValueError``;
-  14. the ``kernels`` JSON line.
+  15. the ``kernels`` JSON line.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-Only ``nvcc``, ``nvidia-smi`` and ``ffmpeg`` (where present) are started
-as subprocesses; the training phase's loaders spawn their worker
-processes, each pool shut down when its epoch ends.  The threads are the
+The subprocesses are ``nvcc``, ``g++`` (the C++ DSP library),
+``nvidia-smi``, ``ffmpeg`` (where present) and data prep's ``python3 -m``
+stages, CLI and tools, each waited for; data prep's loader spawns its
+worker processes once, the pool shut down when its epoch ends.  The threads are the
 entry-point phase's (the HTTP server, its request threads, the upload
 clients, the batcher's dispatcher and loader pool, ``generate_batch``'s
 prefetch pool), each joined or shut down before the phase ends.
@@ -141,6 +160,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -356,52 +376,195 @@ def synthetic_song(seconds: float, sr: int, seed: int, notes=None):
     return out / max(1e-6, float(np.abs(out).max())) * 0.8
 
 
-TRAIN_SR, TRAIN_SONG_S, TRAIN_SONGS, TRAIN_REPEATS = 22050, 30.0, 4, 16
+TRAIN_SR, TRAIN_WINDOWS = 22050, 64  # an epoch: 4 batches of 16 windows
 TRAIN_STEPS, TRAIN_WARMUP = 20, 3  # timed steps in each mode, after warm-up
 CARD = "cuda"  # the device under test
+# data_prep: songs of the synthesiser's default length, enough that at
+# least 3 pass generate_split's filters; the train CLI's steps
+PREP_SONGS, PREP_SONG_S, PREP_STEPS = 8, 40.0, 4
+PREP_STAGES = ("synthesize_corpus", "align_audio_midi", "midi_to_numpy",
+               "compute_metrics", "generate_split")
 
 
-def write_training_corpus(root: Path, seed: int = 0) -> list:
-    """A prepared corpus as ``data/synthesize_corpus.py`` lays one out:
-    ``audio/{id}.wav`` (22050 Hz), ``midi_numpy/{id}.npy``,
-    ``metadata/{id}.yaml`` and ``dataset_split.npz``; songs of random
-    chords (``synthetic_notes``) through the port's synthesizer, made
-    from `seed`.  The train
-    split lists every song TRAIN_REPEATS times, so that one epoch holds
-    whole batches of 16 random windows.  -> the song ids."""
+def run_module(module: str, argv: list, cwd: Path) -> tuple:
+    """``python3 -m music2midi_tpu_torch.<module> argv`` in `cwd`; raises
+    unless it exits 0.  -> (stdout, stderr, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"music2midi_tpu_torch.{module}", *argv],
+        cwd=cwd, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join(
+            filter(None, [str(ROOT), os.environ.get("PYTHONPATH")]))})
+    secs = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"{module} {argv} exited {proc.returncode}:\n"
+            f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout, proc.stderr, secs
+
+
+def training_config():
+    """The packaged defaults with the model of record's architecture."""
+    from music2midi_tpu_torch.config import ConfigNode, default_config
+    from music2midi_tpu_torch.weights import load_npz
+
+    _, record_cfg = load_npz(RECORD)
+    return ConfigNode({**default_config().to_dict(),
+                       "model": record_cfg.model.to_dict()})
+
+
+def split_ids(root: Path, key: str) -> list:
     import numpy as np
 
-    from music2midi_tpu_torch.audio import write_wav
-    from music2midi_tpu_torch.config import default_config
-
-    cond = default_config().conditioning
-    rng = np.random.default_rng(seed)
-    for d in ("audio", "midi_numpy", "metadata"):
-        (root / d).mkdir(parents=True, exist_ok=True)
-    ids = [f"song{i:02d}" for i in range(TRAIN_SONGS)]
-    for i, pid in enumerate(ids):
-        notes = synthetic_notes(TRAIN_SONG_S, seed * 1000 + i)
-        write_wav(root / "audio" / f"{pid}.wav",
-                  synthetic_song(TRAIN_SONG_S, TRAIN_SR, 0, notes), TRAIN_SR)
-        np.save(root / "midi_numpy" / f"{pid}.npy", notes)
-        (root / "metadata" / f"{pid}.yaml").write_text(
-            f"piano:\n  difficulty: "
-            f"{cond.difficulty[int(rng.integers(3))]}\n"
-            f"  genre: {cond.genre[int(rng.integers(6))]}\n  id: {pid}\n")
-    np.savez(root / "dataset_split.npz",
-             train_id=np.array(ids * TRAIN_REPEATS), val_id=np.array(ids),
-             test_id=np.array(ids))
-    return ids
+    split = np.load(root / "dataset_split.npz", allow_pickle=True)
+    return [str(x) for x in split[key]]
 
 
-def training_phase(smi: str, launches_of, check_midi, fixture_path: str
-                   ) -> str:
-    """The training path on the card; see the module docstring, item 12.
+def data_prep_phase(smi: str, launches_of, root: Path) -> str:
+    """The data-prep chain into the card's training and evaluation paths,
+    with the port alone; see the module docstring, item 12.  Writes the
+    corpus into `root`, which the training and entry-point phases read.
     -> the phase's info; raises on any failure."""
+    import numpy as np
+
+    from music2midi_tpu_torch import evaluate, native
+    from music2midi_tpu_torch.data import DataLoader, Music2MIDIDataset
+
+    work = root.parent
+    lines, stage_s = [], {}
+    for stage in PREP_STAGES:
+        argv = [str(root)]
+        if stage == "synthesize_corpus":
+            argv += ["--songs", str(PREP_SONGS), "--duration",
+                     str(PREP_SONG_S), "--profile", "clean"]
+        out, _, stage_s[stage] = run_module(f"data.{stage}", argv, work)
+    split_line = out.strip().splitlines()[-1]  # "split N songs -> ..."
+    n_pass = int(split_line.split()[1])
+    train, test = split_ids(root, "train_id"), split_ids(root, "test_id")
+    require(n_pass >= 3 and train and test, f"split: {split_line}")
+    require(native.available(), f"the C++ DSP library did not build on "
+            f"this machine:\n{native.build_log()}")
+    lines.append(f"stages (s, each a python3 -m subprocess): "
+                 f"{ {k: round(v, 3) for k, v in stage_s.items()} }; "
+                 f"{PREP_SONGS} songs x {PREP_SONG_S:.0f} s (clean): "
+                 f"{n_pass} pass the filters; {split_line} "
+                 f"(train {len(train)}, val "
+                 f"{len(split_ids(root, 'val_id'))}, test {len(test)}) "
+                 f"[{smi}]")
+
+    # the loader over the corpus's train split: thread workers with the
+    # C++ pitch shift against spawned processes, each epoch 64 windows
+    config = training_config()
+    ids = (train * TRAIN_WINDOWS)[:TRAIN_WINDOWS]
+    dataset = Music2MIDIDataset(root, ids, config)
+    rates = {}
+    for kind, procs in (("threads", False), ("processes", True)):
+        loader = DataLoader(dataset, batch_size=16, num_workers=4,
+                            shuffle=True, seed=0, use_processes=procs)
+        require(loader.use_processes == procs,
+                f"loader chose processes={loader.use_processes}")
+        t0 = time.perf_counter()
+        it = iter(loader)
+        first = next(it)
+        first_s = time.perf_counter() - t0
+        n = len(first.waveform) + sum(len(b.waveform) for b in it)
+        total = time.perf_counter() - t0
+        require(n == TRAIN_WINDOWS, f"{kind}: {n} windows")
+        rates[kind] = (n / total, total, first_s)
+    require(dataset.native_dsp, "the dataset's pitch shift is not native")
+    one = {}
+    for route in (True, False):
+        dataset.native_dsp = route
+        rng = np.random.default_rng(1)
+        _, one[route] = timed_s(lambda: [dataset.__getitem__(i, rng)
+                                         for i in range(16)])
+    dataset.native_dsp = True
+    lines.append(
+        f"loader (augment on, batch 16, 4 workers, {TRAIN_WINDOWS} windows "
+        f"an epoch): threads {rates['threads'][0]:.1f} windows/s "
+        f"({rates['threads'][1]:.3f} s, first batch "
+        f"{rates['threads'][2]:.3f} s); spawned processes "
+        f"{rates['processes'][0]:.1f} windows/s ({rates['processes'][1]:.3f}"
+        f" s, first batch {rates['processes'][2]:.3f} s); spawn_s="
+        f"{rates['processes'][2] - rates['threads'][2]:.3f} (first batch, "
+        f"processes less threads); one process: "
+        f"{16 / one[True]:.1f} windows/s C++ pitch shift, "
+        f"{16 / one[False]:.1f} numpy [{smi}]")
+
+    # the train CLI from the model of record (thread workers), its export,
+    # the gate on the export and on the model of record
+    cfg = config.to_dict()
+    cfg["dataloader"] = {"batch_size": min(4, len(train)), "num_workers": 4}
+    cfg["trainer"]["log_every_n_steps"] = 2
+    (work / "prep_config.json").write_text(json.dumps(cfg))
+    out, err, train_s = run_module("train", [
+        str(root), "--init_from", str(RECORD), "--config",
+        str(work / "prep_config.json"), "--out_dir", str(work / "runs"),
+        "--name", "prep", "--max_steps", str(PREP_STEPS), "--dtype",
+        "bfloat16", "--device", CARD], work)
+    require("spawn process workers" not in err,
+            f"the train CLI's loader spawned processes: {err[-2000:]}")
+    records = [json.loads(x) for x in (work / "runs" / "prep" / "log.jsonl")
+               .read_text().splitlines()]
+    losses = [r["train/loss"] for r in records if "train/loss" in r]
+    require(len(losses) == PREP_STEPS // 2 and all(np.isfinite(losses)),
+            f"train CLI log {records}")
+    export = work / "prep.npz"
+    out, _, export_s = run_module("tools.export_npz", [
+        str(export), str(work / "runs" / "prep" / "ckpt")], work)
+    gate, _, gate_s = run_module(
+        "tools.calibration_check",
+        [str(RECORD), str(export), "--device", CARD], work)
+    verdicts = gate.strip().splitlines()[-2:]
+    require(verdicts[0].startswith(f"PASS {RECORD}:")
+            and verdicts[1].startswith(f"PASS {export}:"),
+            f"calibration gate: {verdicts}")
+    lines.append(
+        f"train CLI: {PREP_STEPS} bf16 steps from the model of record, "
+        f"batch {cfg['dataloader']['batch_size']}, thread workers: "
+        f"{train_s:.3f} s (process start, loader, validation and "
+        f"checkpoints included), train/loss {losses}; tools.export_npz "
+        f"{export_s:.3f} s ({out.strip()}); tools.calibration_check "
+        f"{gate_s:.3f} s: {verdicts} [{smi}]")
+
+    # evaluate of the model of record on the test split, bf16, counted
+    old_cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        (res, n), eval_s = timed_s(lambda: launches_of(lambda: evaluate.main(
+            [str(root), "--ckpt", str(RECORD), "--dtype", "bfloat16",
+             "--name", "prep", "--device", CARD])))
+    finally:
+        os.chdir(old_cwd)
+    require(n["log_mel_spectrogram_cuda"] > 0
+            and n["decode_attention_int8"] > 0,
+            f"evaluate bf16: kernels 1 and 3 not launched: {n}")
+    with open(work / res["csv"]) as f:
+        rows = [r.split(",") for r in f.read().splitlines()[1:]]
+    require([r[0] for r in rows] == test, f"evaluate rows {rows}")
+    require(all(0.0 <= float(r[4]) <= 1.0 for r in rows), f"rows {rows}")
+    # the transcription of the first test song has notes
+    engine = evaluate.load_engine(str(RECORD), None, "bfloat16", CARD)
+    midi = engine.generate(audio_path=root / "audio" / f"{test[0]}.wav")
+    n_notes = len(midi.instruments[0].notes) if midi.instruments else 0
+    require(n_notes > 0, f"{test[0]}: the transcription has no notes")
+    lines.append(
+        f"evaluate (bf16, model of record, test split of {len(test)}): "
+        f"{eval_s:.3f} s, mean_score={res['mean_score']:.6f}, "
+        f"chunks_at_cap={res['chunks_at_cap']} of {res['chunks']}, "
+        f"launches={n}; {test[0]} transcribed: n_notes={n_notes} [{smi}]")
+    for line in lines:
+        print(f"  {line}", flush=True)
+    return f"{len(lines)} checks [{smi}]"
+
+
+def training_phase(smi: str, launches_of, check_midi, fixture_path: str,
+                   root: Path) -> str:
+    """The training path on the card, on data_prep's corpus at `root`; see
+    the module docstring, item 13.  -> the phase's info; raises on any
+    failure."""
     import numpy as np
     import torch
 
-    from music2midi_tpu_torch.config import ConfigNode, default_config
     from music2midi_tpu_torch.data import DataLoader, Music2MIDIDataset
     from music2midi_tpu_torch.infer import Music2MIDI
     from music2midi_tpu_torch.models.t5 import t5_config_from
@@ -420,23 +583,24 @@ def training_phase(smi: str, launches_of, check_midi, fixture_path: str
     from music2midi_tpu_torch.train.loop import TrainState, trainable_model
     from music2midi_tpu_torch.weights import load_npz
 
-    record_sd, record_cfg = load_npz(RECORD)
-    config = ConfigNode({**default_config().to_dict(),
-                         "model": record_cfg.model.to_dict()})
+    record_sd, _ = load_npz(RECORD)
+    config = training_config()
     mel_cfg = log_mel_config_from(config)
     lines = []
     with tempfile.TemporaryDirectory() as td:
-        root = Path(td) / "corpus"
-        ids = write_training_corpus(root)
-        split = np.load(root / "dataset_split.npz")
-        dataset = Music2MIDIDataset(root, split["train_id"], config)
+        # the train split's songs in turn, TRAIN_WINDOWS random windows an
+        # epoch: 4 batches of 16
+        train = split_ids(root, "train_id")
+        dataset = Music2MIDIDataset(
+            root, (train * TRAIN_WINDOWS)[:TRAIN_WINDOWS], config)
         loader = DataLoader(dataset, batch_size=16, num_workers=4,
                             shuffle=True, seed=0)
-        require(loader.use_processes, "augmenting loader not on processes")
+        require(not loader.use_processes,
+                "the augmenting loader spawned processes (no C++ DSP)")
         (batches, n), load_s = timed_s(lambda: launches_of(
             lambda: list(loader)))
         B, S = batches[0].waveform.shape
-        require(len(batches) == len(split["train_id"]) // 16
+        require(len(batches) == TRAIN_WINDOWS // 16
                 and S == int(3 * TRAIN_SR), f"loader gave {len(batches)} "
                 f"batches of {batches[0].waveform.shape}")
         enc_len = num_frames(S, mel_cfg) + len(config.conditioning)
@@ -445,9 +609,9 @@ def training_phase(smi: str, launches_of, check_midi, fixture_path: str
         _, item_s = timed_s(lambda: [dataset.__getitem__(i, rng)
                                      for i in range(16)])
         lines.append(
-            f"corpus: {len(ids)} songs x {TRAIN_SONG_S:.0f} s at "
-            f"{TRAIN_SR} Hz; loader (augment on, 4 spawned workers, their "
-            f"start-up included): {len(batches) * B} windows in "
+            f"corpus: data_prep's train split ({len(train)} songs x "
+            f"{PREP_SONG_S:.0f} s at {TRAIN_SR} Hz); loader (augment on, 4 "
+            f"thread workers): {len(batches) * B} windows in "
             f"{load_s:.3f} s = {len(batches) * B / load_s:.1f} windows/s; "
             f"one process: 16 windows in {item_s:.3f} s = "
             f"{16 / item_s:.1f} windows/s; batch "
@@ -564,6 +728,7 @@ def training_phase(smi: str, launches_of, check_midi, fixture_path: str
         cfg_json = Path(td) / "config.json"
         cli_cfg = config.to_dict()
         cli_cfg["trainer"]["log_every_n_steps"] = 2
+        cli_cfg["dataloader"]["batch_size"] = min(16, len(train))
         cfg_json.write_text(json.dumps(cli_cfg))
         out = Path(td) / "runs"
         (_, n), cli_s = timed_s(lambda: launches_of(lambda: train_main([
@@ -610,10 +775,10 @@ def _post_upload(url: str, path: Path) -> tuple:
     return page, time.perf_counter() - t0
 
 
-def entry_points_phase(smi: str, launches_of, engine) -> str:
+def entry_points_phase(smi: str, launches_of, engine, root: Path) -> str:
     """The serving and evaluation entry points on the card; see the module
-    docstring, item 13.  `engine`: the bf16 engine of the model of record
-    that the direct calls run on.  Runs in a temporary working directory
+    docstring, item 14.  `engine`: the bf16 engine of the model of record
+    that the direct calls run on; `root`: data_prep's corpus.  Runs in a temporary working directory
     (the CLIs write ``scores/`` and the web UI ``static/uploads/`` there).
     -> the phase's info; raises on any failure."""
     import os
@@ -746,11 +911,11 @@ def entry_points_phase(smi: str, launches_of, engine) -> str:
                 f"memory dispatcher={thread_peak} B main={main_peak} B")
 
             # (c) evaluate, fp32 and bf16, through the model of record
-            ids = write_training_corpus(td / "corpus")
+            ids = split_ids(root, "test_id")
             for dtype in ("float32", "bfloat16"):
                 (res, n), secs = timed_s(lambda: launches_of(
                     lambda: evaluate.main(
-                        [str(td / "corpus"), "--name", f"smoke-{dtype}",
+                        [str(root), "--name", f"smoke-{dtype}",
                          "--dtype", dtype, "--device", CARD])))
                 with open(td / res["csv"]) as f:
                     rows = [r.split(",") for r in f.read().splitlines()[1:]]
@@ -1764,13 +1929,19 @@ def main() -> int:
             f"{sec['lat_sorted'][0]:.4f} mfu={sec_mfu} "
             f"[{smi}]")
 
+    prep_dir = tempfile.TemporaryDirectory()
+    corpus = Path(prep_dir.name) / "corpus"
+    with Phase("data_prep") as ph:
+        ph.info = data_prep_phase(smi, launches_of, corpus)
+
     with Phase("training") as ph, tempfile.TemporaryDirectory() as td:
         path = str(Path(td) / "a4_22050.wav")
         write_wav(path, fixture, fixture_sr)
-        ph.info = training_phase(smi, launches_of, check_midi, path)
+        ph.info = training_phase(smi, launches_of, check_midi, path, corpus)
 
     with Phase("entry_points") as ph:
-        ph.info = entry_points_phase(smi, launches_of, engine)
+        ph.info = entry_points_phase(smi, launches_of, engine, corpus)
+    prep_dir.cleanup()
 
     with Phase("kernels"):
         print(json.dumps({"kernels": [

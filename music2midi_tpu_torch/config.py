@@ -10,6 +10,8 @@ pass a mapping or a node.
 from __future__ import annotations
 
 import copy
+import json
+from pathlib import Path
 from typing import Any, Iterator, Mapping, Union
 
 # the defaults of config.yaml at the repository root
@@ -176,3 +178,19 @@ def resolve_config(config: Union[ConfigNode, Mapping, None]) -> ConfigNode:
     raise TypeError(
         f"config must be a mapping, a ConfigNode or None, got {type(config)}"
     )
+
+
+def read_json_config(path) -> dict:
+    """A CLI's ``--config`` file -> its mapping.  The port reads JSON, such
+    as an npz's ``__config__``, and no yaml."""
+    if Path(path).suffix in (".yaml", ".yml"):
+        raise SystemExit(f"--config {path}: pass the config as JSON (the "
+                         "port reads no yaml)")
+    return json.loads(Path(path).read_text())
+
+
+def load_json_config(path) -> ConfigNode:
+    """A CLI's ``--config`` file -> its node (None -> the defaults)."""
+    if path is None:
+        return default_config()
+    return ConfigNode(read_json_config(path))

@@ -17,19 +17,18 @@ feeding the port's train step:
     (labels tokenized + -100 padded), with the JAX loader's seeding, so
     one seed gives the same batches in both packages.
 
-The port has no yaml: ``read_metadata`` reads what
-``data/synthesize_corpus.py`` and the downloader write with
-``yaml.safe_dump`` (a mapping of scalars and of mappings of scalars) and
-raises on any other YAML.  The pitch shift is ``dsp.py``'s numpy phase
-vocoder (the JAX package's optional C++ one is not ported), which holds
-the interpreter lock, so with augmentation on the loader's workers are
-spawned processes, as the JAX loader's are without its C++ library;
-never forked, since the parent may hold a CUDA context.
+The port has no yaml: ``metadata.py::read_metadata`` reads what the
+prep stages write (a mapping of scalars and of mappings of scalars) and
+raises on any other YAML.  The pitch shift is the C++ phase vocoder of
+``native.py`` where that library builds, which releases the interpreter
+lock, so the loader's workers are threads, as the JAX loader's are with
+its C++ library; without it ``dsp.py``'s numpy phase vocoder holds the
+lock, and with augmentation on the workers are spawned processes (never
+forked, since the parent may hold a CUDA context).
 """
 
 from __future__ import annotations
 
-import re
 import threading
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
@@ -37,11 +36,13 @@ from typing import Iterator, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 
+from .. import native
 from ..audio import get_duration, load, normalize
 from ..config import ConfigNode, resolve_config
 from ..dsp import pitch_shift
 from ..tokenizer import MidiTokenizer
 from ..train.loop import Batch, pad_labels
+from .metadata import read_metadata
 
 
 def _warn(msg: str) -> None:
@@ -50,159 +51,6 @@ def _warn(msg: str) -> None:
     import logging
 
     logging.getLogger(__name__).warning(msg)
-
-
-# YAML 1.1 plain-scalar resolution, as PyYAML's SafeLoader resolves it,
-# for the forms yaml.safe_dump writes (null, bools, decimal ints, floats);
-# a plain scalar of another resolvable form (octal, hex, binary or
-# sexagesimal numbers, timestamps, merge keys) raises
-_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
-_BOOL = re.compile(r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False"
-                   r"|FALSE|on|On|ON|off|Off|OFF)$")
-_DECIMAL = re.compile(r"^[-+]?(?:0|[1-9][0-9_]*)$")
-_FLOAT = re.compile(r"""^(?:[-+]?[0-9][0-9_]*\.[0-9_]*(?:[eE][-+][0-9]+)?
-                    |\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?)$""", re.X)
-_INF_NAN = re.compile(r"^(?:[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$")
-_UNSUPPORTED = re.compile(r"""^(?:[-+]?0b[0-1_]+|[-+]?0[0-7_]+
-                          |[-+]?0x[0-9a-fA-F_]+
-                          |[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?
-                          |[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}.*|<<|=)$""", re.X)
-_ESCAPES = {"0": "\0", "a": "\a", "b": "\b", "t": "\t", "\t": "\t",
-            "n": "\n", "v": "\v", "f": "\f", "r": "\r", "e": "\x1b",
-            " ": " ", '"': '"', "/": "/", "\\": "\\", "N": "\x85",
-            "_": "\xa0", "L": "\u2028", "P": "\u2029"}
-_HEX_ESCAPES = {"x": 2, "u": 4, "U": 8}
-
-
-def _plain_scalar(text: str):
-    """A plain scalar -> None / bool / int / float / str (YAML 1.1)."""
-    if _NULL.match(text):
-        return None
-    if _BOOL.match(text):
-        return text.lower() in ("yes", "true", "on")
-    if _DECIMAL.match(text):
-        return int(text.replace("_", ""))
-    if _FLOAT.match(text):
-        return float(text.replace("_", ""))
-    if _INF_NAN.match(text):
-        return float(text.lower().replace(".", ""))
-    if _UNSUPPORTED.match(text):
-        raise ValueError(f"unsupported YAML scalar {text!r}")
-    return text
-
-
-def _double_quoted(body: str) -> str:
-    out, i = [], 0
-    while i < len(body):
-        ch = body[i]
-        if ch != "\\":
-            out.append(ch)
-            i += 1
-            continue
-        code = body[i + 1]
-        if code in _HEX_ESCAPES:
-            n = _HEX_ESCAPES[code]
-            out.append(chr(int(body[i + 2:i + 2 + n], 16)))
-            i += 2 + n
-        elif code in _ESCAPES:
-            out.append(_ESCAPES[code])
-            i += 2
-        else:
-            raise ValueError(f"unsupported YAML escape \\{code}")
-    return "".join(out)
-
-
-def _fold(lines: List[str], quote: str) -> str:
-    """Join a scalar's lines by YAML line folding: a line break is a
-    space, each empty line a newline; in double quotes a break after an
-    unescaped backslash joins the lines."""
-    text, breaks = lines[0], 0
-    for line in lines[1:]:
-        if not line:
-            breaks += 1
-            continue
-        trailing = len(text) - len(text.rstrip("\\"))
-        if quote == '"' and not breaks and trailing % 2 == 1:
-            text = text[:-1] + line
-        else:
-            text += "\n" * breaks if breaks else " "
-            text += line
-        breaks = 0
-    return text
-
-
-def _scalar(lines: List[str]):
-    """The lines of one scalar (the first after ``key:``, then its
-    continuation lines, stripped; "" for an empty line) -> its value."""
-    first = lines[0]
-    quote = first[0] if first[0] in "'\"" else ""
-    text = _fold(lines, quote)
-    if quote:
-        if len(text) < 2 or not text.endswith(quote):
-            raise ValueError(f"unterminated YAML scalar {text!r}")
-        body = text[1:-1]
-        return body.replace("''", "'") if quote == "'" \
-            else _double_quoted(body)
-    if text == "{}":
-        return {}
-    if first[0] in "[{|>&*!%@`#" or first in ("-", "?") \
-            or first.startswith(("- ", "? ")) or " #" in text \
-            or any(line.startswith("#") for line in lines):
-        raise ValueError(f"unsupported YAML value {text!r}")
-    return _plain_scalar(text)
-
-
-_ENTRY = re.compile(r"""^('(?:[^']|'')*'   # single-quoted key
-                     |"(?:[^"\\]|\\.)*"    # double-quoted key
-                     |[^'"\s#](?:[^:]|:(?=\S))*?)  # plain key
-                     :(?:\s+(.*))?$""", re.X)
-
-
-def read_metadata(text: str) -> dict:
-    """A metadata file as ``yaml.safe_dump`` writes it -> the same value
-    ``yaml.safe_load`` gives: a mapping whose values are scalars or
-    mappings of scalars (``{}`` for an empty one).  Raises ValueError on
-    any other YAML (sequences, flow collections, block scalars, anchors,
-    tags, deeper nesting)."""
-    rows = [(len(line) - len(line.lstrip(" ")), line.strip())
-            for line in text.splitlines()]
-    while rows and not rows[-1][1]:
-        rows.pop()
-    while rows and not rows[0][1]:
-        rows.pop(0)
-    if [r[1] for r in rows] == ["{}"]:
-        return {}
-
-    def entries(i: int, indent: int, into: dict, depth: int) -> int:
-        while i < len(rows) and rows[i][0] == indent and rows[i][1]:
-            m = _ENTRY.match(rows[i][1])
-            if m is None:
-                raise ValueError(f"unsupported YAML line {rows[i][1]!r}")
-            key = m.group(1)
-            key = _scalar([key]) if key[0] in "'\"" else key
-            value = (m.group(2) or "").strip()
-            i += 1
-            j = i  # the value's continuation lines (and empty lines)
-            while j < len(rows) and (not rows[j][1] or rows[j][0] > indent):
-                j += 1
-            while j > i and not rows[j - 1][1]:
-                j -= 1
-            if value:
-                into[key] = _scalar([value] + [r[1] for r in rows[i:j]])
-                i = j
-            elif j > i:
-                if depth == 2:
-                    raise ValueError("YAML nested deeper than two levels")
-                into[key] = {}
-                i = entries(i, rows[i][0], into[key], depth + 1)
-            else:
-                into[key] = None
-        return i
-
-    out: dict = {}
-    if entries(0, 0, out, 1) != len(rows):
-        raise ValueError("unsupported YAML layout")
-    return out
 
 
 class MetadataDict:
@@ -296,6 +144,10 @@ class Music2MIDIDataset:
         self._aug_cache_lock = threading.Lock()
         self.aug_cache_hits = 0
         self.aug_cache_misses = 0
+        # the pitch shift's route, fixed here and pickled to spawned
+        # workers, so the batches do not depend on the kind of worker
+        self.native_dsp = (bool(self.config.dataset.get("augment", True))
+                           and native.available())
 
     def __len__(self) -> int:
         return len(self.piano_ids)
@@ -408,7 +260,8 @@ class Music2MIDIDataset:
                 if do_norm:
                     waveform = normalize(waveform)
                 if step != 0:
-                    waveform = pitch_shift(waveform, sr, step)
+                    waveform = pitch_shift(waveform, sr, step,
+                                           prefer_native=self.native_dsp)
                 if use_cache:
                     entry = waveform.copy()
                     with self._aug_cache_lock:
@@ -449,13 +302,15 @@ class DataLoader:
     Batch (reference DataLoader(batch=16, workers=4) + collate_fn,
     dataset.py:64-78,163-167).
 
-    Workers are THREADS by default.  The pitch shift (numpy's phase
-    vocoder) holds the interpreter lock, so with augmentation on and
-    workers asked for, the loader uses a spawn-context process pool, as
-    the JAX loader does without its C++ DSP; spawn, never fork, because
-    the parent may already hold a CUDA context.  Every job's randomness
-    comes from a seed of its own, so the batches do not depend on the
-    kind or number of workers."""
+    Workers are THREADS by default: the C++ pitch shift, rfft/irfft,
+    scipy's resample_poly and file reads release the interpreter lock.
+    Without the C++ library the pitch shift (numpy's phase vocoder) holds
+    the lock, so with augmentation on and workers asked for, the loader
+    then uses a spawn-context process pool, as the JAX loader does; so it
+    does with ``use_processes=True``.  Spawn, never fork, because the
+    parent may already hold a CUDA context.  Every job's randomness comes
+    from a seed of its own and the dataset fixes its pitch-shift route,
+    so the batches do not depend on the kind or number of workers."""
 
     def __init__(
         self,
@@ -474,11 +329,13 @@ class DataLoader:
         self.seed = seed
         self.drop_last = drop_last
         augment = bool(dataset.config.dataset.get("augment", True))
-        if self.num_workers > 0 and not use_processes and augment:
+        if (self.num_workers > 0 and not use_processes and augment
+                and not dataset.native_dsp):
             _warn(
-                "the numpy pitch shift holds the interpreter lock: thread "
-                "workers would serialize it; switching DataLoader to spawn "
-                "process workers"
+                "native DSP library not built (native.build_log(): "
+                f"{native.build_log()[-500:]!r}): thread workers would "
+                "serialize pitch_shift on the GIL; switching DataLoader to "
+                "spawn process workers"
             )
             use_processes = True
         if use_processes and dataset._cache_audio:
@@ -494,8 +351,9 @@ class DataLoader:
                 "dataset.cache_augment_mb with process workers: the "
                 "dataset pickles its augment cache EMPTY and worker pools "
                 "are re-spawned per epoch, so the cache never warms and "
-                "every window re-runs the phase vocoder; prefer "
-                "num_workers=0 when memoizing augmented windows"
+                "every window re-runs the phase vocoder; prefer thread "
+                "workers (the native DSP built) or num_workers=0 when "
+                "memoizing augmented windows"
             )
         self.use_processes = use_processes
         self.tokenizer = MidiTokenizer(dataset.config)

@@ -7,9 +7,10 @@ recipe as librosa: time-stretch by 2^(-n/12) with a phase vocoder
 (n_fft=2048, hop=512, Hann), then resample back to the original rate, fixed
 to the input length.
 
-The port's own copy of ``music2midi_tpu/dsp.py`` on its numpy path: the
-JAX package's optional C++ implementation (``native/m2m_dsp.cpp``, loaded
-through ``music2midi_tpu/native.py``) is not ported.
+The port's own copy of ``music2midi_tpu/dsp.py``.  A C++ implementation
+with the same signature (``csrc/m2m_dsp.cpp``, loaded through
+``native.py``) is taken when it builds; this numpy version is the
+reference and the fallback.
 """
 
 from __future__ import annotations
@@ -94,11 +95,21 @@ def time_stretch(y: np.ndarray, rate: float, n_fft: int = 2048,
                  length=int(round(len(y) / rate)))
 
 
-def pitch_shift(y: np.ndarray, sr: int, n_steps: float) -> np.ndarray:
-    """Shift pitch by n_steps semitones, preserving duration and length
-    (the JAX package's numpy path)."""
+def pitch_shift(
+    y: np.ndarray, sr: int, n_steps: float, prefer_native: bool = True
+) -> np.ndarray:
+    """Shift pitch by n_steps semitones, preserving duration and length.
+
+    Dispatches to the C++ implementation (``native.py``) when it is built
+    (same algorithm, held against this path within 1e-5), else runs this
+    numpy path."""
     if n_steps == 0:
         return np.asarray(y, dtype=np.float32)
+    if prefer_native:
+        from . import native
+
+        if native.available():
+            return native.pitch_shift(y, sr, n_steps)
     rate = 2.0 ** (-float(n_steps) / 12.0)
     stretched = time_stretch(np.asarray(y, dtype=np.float64), rate)
     # resample by `rate` back to the original duration

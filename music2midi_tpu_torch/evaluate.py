@@ -9,7 +9,7 @@ The port of the repository's root ``evaluate.py``: the same flags plus
 ``--device`` (default ``cuda``), the same CSV columns and rows (written
 with the standard ``csv`` module), the same per-song lines.  ``DATA_DIR``
 holds ``dataset_split.npz``, ``audio/{id}.wav``, ``midi_numpy/{id}.npy``
-and ``metadata/{id}.yaml`` (read by ``data/dataset.py::read_metadata``;
+and ``metadata/{id}.yaml`` (read by ``data/metadata.py::read_metadata``;
 the port reads no other YAML).  ``--config`` takes JSON, such as an npz's
 ``__config__``; ``./config.yaml`` is never read.  After the mean score it
 prints the chunks that decoded to the token cap (``last_decode_stats``).
@@ -25,11 +25,12 @@ from __future__ import annotations
 
 import argparse
 import csv
-import json
 from pathlib import Path
 
 import numpy as np
 import torch
+
+from .config import read_json_config
 
 #: the committed trained artifact; the CLIs fall back to it when neither
 #: --ckpt nor --config is given
@@ -43,12 +44,7 @@ CONFIG_HELP = ("config as JSON, e.g. an npz's __config__ (the port reads "
 
 def load_config(path):
     """A JSON config file -> its mapping (None -> None)."""
-    if path is None:
-        return None
-    if Path(path).suffix in (".yaml", ".yml"):
-        raise SystemExit(f"--config {path}: pass the config as JSON (the "
-                         "port reads no yaml)")
-    return json.loads(Path(path).read_text())
+    return None if path is None else read_json_config(path)
 
 
 def load_engine(ckpt, config_path, dtype: str = "float32", device=None,
@@ -116,9 +112,9 @@ def main(argv=None) -> dict:
     """Run the CLI; -> {"csv", "mean_score", "chunks", "chunks_at_cap"}."""
     args = parse_args(argv)
 
-    # imported here: data.dataset imports the training loop, and the
-    # serving modules import this module for load_engine
-    from .data.dataset import read_metadata
+    # imported here: the serving modules import this module for
+    # load_engine, and import nothing of the data package
+    from .data.metadata import read_metadata
     from .evaluation import evaluate_batch
     from .utils import numpy_to_midi
 

@@ -33,7 +33,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..config import ConfigNode, default_config
+from ..config import load_json_config
 from ..data import DataLoader, Music2MIDIDataset
 from ..evaluation import evaluate_batch as chroma
 from ..infer.decode import DecodeConfig, generate_tokens
@@ -147,15 +147,6 @@ def _notes_from_labels(labels, tokenizer):
     return out
 
 
-def _load_config(path) -> ConfigNode:
-    if path is None:
-        return default_config()
-    if Path(path).suffix in (".yaml", ".yml"):
-        raise SystemExit(f"--config {path}: pass the config as JSON (the "
-                         "port reads no yaml)")
-    return ConfigNode(json.loads(Path(path).read_text()))
-
-
 def main(argv=None) -> None:
     args = parse_args(argv)
     if args.tp != 1:
@@ -163,7 +154,7 @@ def main(argv=None) -> None:
                          "ported; the port trains on one device (--tp 1)")
 
     device = resolve_device(args.device)
-    config = _load_config(args.config)
+    config = load_json_config(args.config)
     data_dir = Path(args.data_dir)
     split = np.load(data_dir / "dataset_split.npz", allow_pickle=True)
     train_set = Music2MIDIDataset(data_dir, split["train_id"], config)

@@ -20,3 +20,18 @@ def numpy_to_midi(notes: np.ndarray) -> MidiFile:
     midi.instruments.append(inst)
     midi.remove_invalid_notes()
     return midi
+
+
+def midi_to_numpy_notes(midi: MidiFile) -> np.ndarray:
+    """All instruments' notes flattened to (N, 4) rows sorted by
+    onset > offset > pitch."""
+    rows = [
+        [n.start, n.end, n.pitch, n.velocity]
+        for inst in midi.instruments
+        for n in inst.notes
+    ]
+    if not rows:
+        return np.zeros((0, 4))
+    arr = np.array(rows, dtype=np.float64)
+    order = np.lexsort([arr[:, 2], arr[:, 1], arr[:, 0]])
+    return arr[order]

@@ -8,8 +8,8 @@ The checkpoint is one small npz written here by the JAX package's own
 decoder layers, with that 2 + 2-layer config embedded.  Both sides load it
 through their CLI's ``load_engine``, whose engine gets a decode cap of 64
 tokens here (the same on both sides) to keep the JAX programs small.  The
-corpus is 3 short synthetic songs laid out as
-``chip_smoke.py::write_training_corpus`` lays one out.
+corpus is 3 short synthetic songs laid out as the data-prep chain
+(``music2midi_tpu_torch.data``) lays one out.
 
 Bars (fp32): the CSV rows equal, the columns ``piano_id``, ``model``,
 ``genre``, ``difficulty`` exactly and ``score`` within 1e-6; the MIDI files

@@ -3,8 +3,8 @@
 A tiny prepared corpus that the test writes itself (``audio/*.wav`` at
 22050 Hz, ``midi_numpy/*.npy``, ``metadata/*.yaml`` through
 ``yaml.safe_dump``, as ``data/synthesize_corpus.py`` writes them).  With
-augmentation on and ``music2midi_tpu.native.available`` patched to
-False (both sides take numpy's pitch shift), the same
+augmentation on and both packages' ``native.available`` patched to False
+(both sides take numpy's pitch shift), the same
 ``np.random.Generator`` gives the same ``__getitem__`` in both packages,
 and one seed the same ``DataLoader`` batches: waveforms within 1e-6,
 notes, labels and conditioning exactly.  The port's loader gives the same
@@ -30,6 +30,7 @@ from music2midi_tpu.config import default_config as jax_default_config
 from music2midi_tpu.data import dataset as jds
 from music2midi_tpu_torch import audio as paudio
 from music2midi_tpu_torch import dsp as pdsp
+from music2midi_tpu_torch import native as pnative
 from music2midi_tpu_torch.config import default_config
 from music2midi_tpu_torch.data import dataset as pds
 
@@ -39,6 +40,7 @@ SR = 22050
 @pytest.fixture(autouse=True)
 def _numpy_pitch_shift(monkeypatch):
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(pnative, "available", lambda: False)
 
 
 @pytest.fixture(scope="module")
@@ -112,14 +114,15 @@ def test_loader_batches_match_jax(corpus, shuffle, drop_last):
 
 
 def test_loader_workers_give_the_same_batches(corpus, caplog):
-    """Spawned workers (augmentation on) and threads (off) give the
-    batches of no workers; an epoch left after one batch stops its
-    workers."""
+    """Spawned workers (augmentation on, no C++ library) and threads
+    (off) give the batches of no workers; an epoch left after one batch
+    stops its workers."""
     _, pset = _pair(corpus)
     kw = dict(batch_size=2, shuffle=True, seed=1, drop_last=False)
     plain = list(pds.DataLoader(pset, num_workers=0, **kw))
     spawned = pds.DataLoader(pset, num_workers=2, **kw)
     assert spawned.use_processes  # augment on: numpy pitch shift
+    assert not pset.native_dsp  # fixed when made, pickled to the workers
     assert "spawn process workers" in caplog.text
     for a, b in zip(plain, spawned):
         np.testing.assert_array_equal(a.waveform, b.waveform)

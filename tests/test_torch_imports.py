@@ -1,8 +1,9 @@
 """The port imports nothing the card's machine lacks.
 
 That machine has PyTorch with CUDA, numpy, scipy and einops, and no JAX,
-no ml_dtypes, no yaml, no pandas and no matplotlib; and the JAX package
-itself needs yaml at import (``music2midi_tpu/config.py``).  Checks:
+no ml_dtypes, no yaml, no pandas, no sklearn and no matplotlib; and the
+JAX package itself needs yaml at import (``music2midi_tpu/config.py``).
+Checks:
 
   * an AST scan of every module of ``music2midi_tpu_torch`` and of
     ``chip_smoke.py`` finds no import of those packages or of
@@ -18,7 +19,10 @@ itself needs yaml at import (``music2midi_tpu/config.py``).  Checks:
     two must give the same notes), then runs ``python3 -m
     music2midi_tpu_torch.serve_batch --device cpu`` and ``... evaluate
     --device cpu`` (through ``runpy``, as ``-m`` runs them) on a corpus of
-    two short songs;
+    two short songs, the data-prep chain (``data.synthesize_corpus``,
+    ``align_audio_midi``, ``midi_to_numpy``, ``compute_metrics``,
+    ``generate_split``) on 4 songs of 12 s, and ``tools.calibration_check
+    --device cpu`` on the model of record;
   * serving (the engine, the bench, ``serve``, ``webui``, ``serve_batch``
     and ``evaluate``'s ``load_engine``) imports no training module.
 """
@@ -33,7 +37,15 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "music2midi_tpu_torch"
 RECORD = ROOT / "checkpoints" / "model_of_record.npz"
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "yaml",
-           "omegaconf", "transformers", "pandas", "music2midi_tpu")
+           "omegaconf", "transformers", "pandas", "sklearn",
+           "music2midi_tpu")
+# the data-prep chain and the checkpoint tools
+PREP = ("native.py", "data/metadata.py", "data/align.py",
+        "data/midi_tools.py", "data/synthesize_corpus.py",
+        "data/align_audio_midi.py", "data/midi_to_numpy.py",
+        "data/compute_metrics.py", "data/generate_split.py",
+        "tools/calibration_check.py", "tools/export_npz.py",
+        "tools/average_checkpoints.py")
 # optional tools the card's machine lacks: imported inside functions only
 LAZY = ("matplotlib", "yt_dlp", "fluidsynth")
 
@@ -69,7 +81,7 @@ def test_port_sources_import_no_blocked_package():
                  "train/__main__.py", "data/dataset.py", "evaluation.py",
                  "dsp.py", "evaluate.py", "serve_batch.py", "webui.py",
                  "serve/batcher.py", "serve/webui_utils.py",
-                 "plot_midi.py", "plot_interactive.py"):
+                 "plot_midi.py", "plot_interactive.py", *PREP):
         assert PKG / name in files
     bad = [
         f"{p.relative_to(ROOT)}:{line} imports {root}"
@@ -144,6 +156,31 @@ with tempfile.TemporaryDirectory() as td:
         cli[mod] = buf.getvalue().strip().splitlines()
     cli["csv"] = open("scores/score-music2midi.csv").read().splitlines()
 
+    # the data-prep chain and the gate's CLI, as `python3 -m` runs them
+    def run_module(name, argv):
+        sys.argv = [name] + argv
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                runpy.run_module(f"music2midi_tpu_torch.{name}",
+                                 run_name="__main__")
+            code = 0
+        except SystemExit as e:
+            code = e.code
+        return code, buf.getvalue().strip().splitlines()
+
+    os.mkdir("prep")
+    prep = [run_module("data.synthesize_corpus",
+                       ["prep", "--songs", "4", "--duration", "12"])]
+    for stage in ("align_audio_midi", "midi_to_numpy", "compute_metrics",
+                  "generate_split"):
+        prep.append(run_module(f"data.{stage}", ["prep"]))
+    cli["prep"] = prep
+    cli["split"] = {k: [str(x) for x in v] for k, v in np.load(
+        "prep/dataset_split.npz", allow_pickle=True).items()}
+    cli["gate"] = run_module("tools.calibration_check",
+                             [record, "--device", "cpu"])
+
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print(json.dumps({"modules": mods, "ok": ok, "detail": detail,
                   "batch_same": notes(batch) == notes(midi),
@@ -167,7 +204,8 @@ def test_port_runs_with_the_card_machines_packages_only():
                  "train.adafactor", "train.checkpoint", "train.__main__",
                  "data.dataset", "evaluation", "dsp", "evaluate",
                  "serve_batch", "webui", "serve.batcher", "serve.webui_utils",
-                 "plot_midi", "plot_interactive"):
+                 "plot_midi", "plot_interactive",
+                 *(p[:-3].replace("/", ".") for p in PREP)):
         assert f"music2midi_tpu_torch.{name}" in res["modules"]
     assert res["leaked"] == []
     assert res["ok"], res["detail"]
@@ -183,6 +221,12 @@ def test_port_runs_with_the_card_machines_packages_only():
     assert [r.split(",")[:4] for r in res["cli"]["csv"][1:]] == [
         ["s0", "music2midi", "electronic", "beginner"],
         ["s1", "music2midi", "electronic", "beginner"]]
+    assert [code for code, _ in res["cli"]["prep"]] == [0] * 5
+    assert res["cli"]["prep"][-1][1][-1].startswith("split 4 songs -> ")
+    assert sum(len(v) for k, v in res["cli"]["split"].items()
+               if k != "val_id") == 4
+    code, lines = res["cli"]["gate"]
+    assert code == 0 and lines[-1].startswith(f"PASS {RECORD}: notes=")
 
 
 def test_serving_imports_no_training_module():
