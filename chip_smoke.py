@@ -142,13 +142,36 @@ and exits non-zero, and nothing is caught and passed over:
      cap printed; (d) with ``ffmpeg`` on the machine, a FLAC made of a
      song's WAV loads equal to the WAV within 1/32768; without it,
      ``audio.load`` of an mp3 raises the JAX package's ``ValueError``;
-  15. the ``kernels`` JSON line.
+  15. parallel, ``music2midi_tpu_torch/parallel`` on the one card, each
+     group of ranks a ``python3 -m torch.distributed.run --standalone``
+     subprocess whose ranks print their backend and device: (a) the
+     train CLI for 2 fp32 steps from the model of record, batch 16 (data
+     prep's train split repeated to one batch, no loader workers), in 4
+     ranks at (dp, tp) = (2, 2) sharing the card over gloo against one
+     process: losses within 1e-4 relative, the gathered checkpoint's
+     parameters within 1e-4 of each element or its leaf's RMS; (b) the
+     same ranks serving (this file with ``--parallel-worker serve``):
+     ``Music2MIDI(mesh=...)`` in bf16 on the song, kernels 1 and 3
+     launched on every rank at B/dp = 32, H/tp = 4, ``"captured":
+     false``, the tp ranks' decode steps equal, the calibration gate on
+     the fixture, greedy-token agreement with the one-device engine at
+     least ``TP_BF16_BAR`` (ROADMAP C3) in bf16 and ``FP32_TOKEN_BAR``
+     in fp32; (c) kernels 3 and 4 at B 32, H 4 against their plain
+     versions (causal n = 32, 128, 1023, ``round_pv`` off and on, the
+     launch plan bit-equal to the public function; cross; transposed
+     cross); (d) one NCCL rank at world size 1 (``--parallel-worker
+     nccl``): a dp-only engine, captured, its bf16 tokens equal the
+     one-process engine's bit for bit.  No time here is a scaling
+     number: the ranks share one card and every gloo collective goes
+     through the host;
+  16. the ``kernels`` JSON line.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The subprocesses are ``nvcc``, ``g++`` (the C++ DSP library),
-``nvidia-smi``, ``ffmpeg`` (where present) and data prep's ``python3 -m``
-stages, CLI and tools, each waited for; data prep's loader spawns its
+``nvidia-smi``, ``ffmpeg`` (where present), data prep's ``python3 -m``
+stages, CLI and tools, and the parallel phase's torchrun groups, each
+waited for; data prep's loader spawns its
 worker processes once, the pool shut down when its epoch ends.  The threads are the
 entry-point phase's (the HTTP server, its request threads, the upload
 clients, the batcher's dispatcher and loader pool, ``generate_batch``'s
@@ -1141,8 +1164,24 @@ def sha16(t) -> str:
     return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
+def check_attention(got, ref, what) -> float:
+    """A decode-attention kernel's bf16 output against its plain version's
+    -> max |diff|, within ``ATTN_BAR``."""
+    import torch
+
+    torch.cuda.synchronize()
+    require(got.shape == ref.shape and got.dtype == torch.bfloat16,
+            f"{what}: {got.shape} {got.dtype} vs {ref.shape}")
+    require(bool(torch.isfinite(got.float()).all()),
+            f"{what}: non-finite kernel output")
+    err = float((got.float() - ref.float()).abs().max())
+    require(err <= ATTN_BAR, f"{what}: kernel vs plain {err} > {ATTN_BAR}")
+    return err
+
+
 def int8_attention_inputs(L: int, causal: bool, n_sets: int,
-                          bits: int = 8) -> list:
+                          bits: int = 8, batch: int = B_SERVE,
+                          heads: int = HEADS) -> list:
     """`n_sets` seeded decode-attention inputs on the card at the serving
     widths, laid out as the decode loop lays them out: q bf16 (B, H, 1, D);
     int8 K/V (B, H, L, D) through the port's ``_quantize_kv`` at ``bits``
@@ -1160,7 +1199,7 @@ def int8_attention_inputs(L: int, causal: bool, n_sets: int,
     def normal(*shape):
         return torch.randn(*shape, generator=g, device="cuda")
 
-    B, H, D = B_SERVE, HEADS, D_KV
+    B, H, D = batch, heads, D_KV
     sets = []
     for _ in range(n_sets):
         one = [normal(B, H, 1, D).to(torch.bfloat16)]
@@ -1217,16 +1256,7 @@ def attention_phase(smi: str) -> tuple:
     from music2midi_tpu_torch.ops import decode_attention as da
 
     bf16, f32 = torch.bfloat16, torch.float32
-
-    def check(got, ref, what) -> float:
-        torch.cuda.synchronize()
-        require(got.shape == ref.shape and got.dtype == torch.bfloat16,
-                f"{what}: {got.shape} {got.dtype} vs {ref.shape}")
-        require(bool(torch.isfinite(got.float()).all()),
-                f"{what}: non-finite kernel output")
-        err = float((got.float() - ref.float()).abs().max())
-        require(err <= ATTN_BAR, f"{what}: kernel vs plain {err} > {ATTN_BAR}")
-        return err
+    check = check_attention
 
     def check_f32(got, ref, what) -> float:
         """The f32 instance: max |diff| over max |plain| within F32_BAR."""
@@ -1488,6 +1518,355 @@ def attention_phase(smi: str) -> tuple:
             entry("cross_t", "music2midi_tpu_torch/csrc/decode_attention.cu",
                   "music2midi_tpu/ops/decode_attention.py:288",
                   timings["cross_t"][0]))
+
+
+# parallel: 4 ranks on the one card over gloo at (dp, tp) = (2, 2); the
+# train CLI's steps and batch; bars
+PAR_DP, PAR_TP, PAR_STEPS, PAR_BATCH = 2, 2, 2, 16
+PAR_TRAIN_RTOL = 1e-4  # losses; parameters: of each element or leaf RMS
+FP32_TOKEN_BAR = 0.99  # fp32 greedy-token agreement, tp engine vs one
+# ROADMAP C3: the bf16 engine at (2, 2) against one device, a floor just
+# under its reading on an H100 (0.921127; tools/torch_mesh_agreement.py:
+# tp moves bf16 roundings, dp alone and fp32 at every mesh agree 1.0)
+TP_BF16_BAR = 0.91
+
+
+def torchrun(nproc: int, argv: list, cwd: Path, backend=None) -> tuple:
+    """``python3 -m torch.distributed.run --standalone --nproc_per_node
+    nproc argv`` in `cwd` (``M2M_DIST_BACKEND=backend`` when given); raises
+    unless every rank exits 0.  -> (stdout, stderr, seconds)."""
+    env = {k: v for k, v in os.environ.items() if k != "M2M_DIST_BACKEND"}
+    env["PYTHONPATH"] = os.pathsep.join(
+        filter(None, [str(ROOT), os.environ.get("PYTHONPATH")]))
+    if backend is not None:
+        env["M2M_DIST_BACKEND"] = backend
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(nproc), *argv],
+        cwd=cwd, capture_output=True, text=True, timeout=600, env=env)
+    secs = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"torchrun {nproc} x {argv} exited {proc.returncode}:\n"
+            f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout, proc.stderr, secs
+
+
+def token_agreement(toks, base) -> tuple:
+    """(equal tokens, tokens) of two lists of token rows, each pair
+    compared over the longer row (the shorter padded with 0)."""
+    import numpy as np
+
+    same = total = 0
+    for a, b in zip(toks, base):
+        n = max(len(a), len(b))
+        pa, pb = np.zeros(n, np.int64), np.zeros(n, np.int64)
+        pa[:len(a)], pb[:len(b)] = a, b
+        same += int((pa == pb).sum())
+        total += n
+    return same, total
+
+
+def parallel_worker(mode: str, out: Path, fixture_path: str) -> None:
+    """One rank of the parallel phase's engine runs (``python3 -m
+    torch.distributed.run ... chip_smoke.py --parallel-worker MODE OUT
+    FIXTURE``): "serve" at (2, 2) over gloo (bf16 on the song with the
+    kernels' counts, the calibration gate on the fixture, fp32 on the
+    song), "nccl" at (1, 1) over NCCL (bf16 on the song, the captured
+    program).  Writes ``OUT/<mode>_rank<r>.json``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from music2midi_tpu_torch.calibration import check_midi
+    from music2midi_tpu_torch.infer import Music2MIDI
+    from music2midi_tpu_torch.parallel import (
+        make_mesh,
+        maybe_initialize_distributed,
+    )
+    from music2midi_tpu_torch.parallel.distributed import shutdown
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = maybe_initialize_distributed(device=CARD)
+    want = "gloo" if mode == "serve" else "nccl"
+    require(info and info.backend == want,
+            f"rank backend {info and info.backend}, asked for {want}")
+    dp, tp = (PAR_DP, PAR_TP) if mode == "serve" else (1, 1)
+    mesh = make_mesh(dp, tp, CARD)
+    wrappers = _wrappers()
+    song = synthetic_song(180.0, 16000, seed=7)
+    res = {"rank": info.rank, "backend": info.backend,
+           "device": str(info.device)}
+    eng = Music2MIDI.from_npz(RECORD, dtype=torch.bfloat16, mesh=mesh,
+                              device=CARD)
+    chunks = eng._chunk_waveform(song)
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = eng.sample_tokens_batched(chunks)
+    torch.cuda.synchronize()
+    res["bf16_s"] = time.perf_counter() - t0
+    res["launches"] = {w.__name__: w.launches for w in wrappers}
+    res["bf16_tokens"] = [t.tolist() for t in toks]
+    res["stats"] = [{k: s[k] for k in ("batch_width", "steps", "loop_steps",
+                                       "captured")}
+                    for s in eng.last_decode_stats]
+    res["local_heads"] = eng.t5_config.num_heads
+    if mode == "serve":
+        ok, detail = check_midi(eng.generate(audio_path=fixture_path))
+        res["gate"] = [bool(ok), detail]
+        eng32 = Music2MIDI.from_npz(RECORD, mesh=mesh, device=CARD)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res["fp32_tokens"] = [t.tolist()
+                              for t in eng32.sample_tokens_batched(chunks)]
+        torch.cuda.synchronize()
+        res["fp32_s"] = time.perf_counter() - t0
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"{mode}_rank{info.rank}.json").write_text(json.dumps(res))
+    shutdown()
+
+
+def dropout_draw_ms(data: Path, config) -> tuple:
+    """(ms, ms) of one train step's dropout draws on the card, at the full
+    shapes every rank of a (PAR_DP, PAR_TP) mesh draws and at the rank's
+    share (1 / (dp tp) at the head and d_ff sites, 1 / dp elsewhere): the
+    shapes are those a one-device forward of the CLI's first batch asks
+    for (``models/t5.py::MaskShard``, logged), timed as ``torch.rand``
+    calls of their sizes."""
+    import numpy as np
+    import torch
+
+    from music2midi_tpu_torch.data import DataLoader, Music2MIDIDataset
+    from music2midi_tpu_torch.models.t5 import MaskShard, t5_config_from
+    from music2midi_tpu_torch.ops.mel import log_mel_config_from
+    from music2midi_tpu_torch.train.loop import _loss, to_device
+    from music2midi_tpu_torch.train.loop import trainable_model
+    from music2midi_tpu_torch.weights import load_npz
+
+    ids = np.load(data / "dataset_split.npz", allow_pickle=True)["train_id"]
+    loader = DataLoader(Music2MIDIDataset(data, ids, config),
+                        batch_size=PAR_BATCH, num_workers=0, shuffle=True)
+    batch = to_device(next(iter(loader)), CARD)
+    cfg = t5_config_from(config)
+    model = trainable_model(load_npz(RECORD)[0], cfg, CARD)
+    shapes = []
+
+    class Logged(MaskShard):
+        def keep(self, shape, split_dim, rate, device):
+            shapes.append((math.prod(shape), split_dim))
+            return super().keep(shape, split_dim, rate, device)
+
+    gen = torch.Generator(device=CARD).manual_seed(0)
+    with torch.no_grad():
+        _loss(model, batch, Logged(gen, slice(None), PAR_BATCH), cfg,
+              log_mel_config_from(config), False)
+
+    def draws(share: bool):
+        for n, split in shapes:
+            if share:
+                n //= PAR_DP * (PAR_TP if split is not None else 1)
+            torch.rand(n, generator=gen, device=CARD)
+
+    return cuda_ms(lambda: draws(False), 10), cuda_ms(lambda: draws(True), 10)
+
+
+def parallel_phase(smi: str, engine, song, corpus: Path, fixture_path: str,
+                   work: Path) -> str:
+    """dp x tp on the one card; see the module docstring, item 15."""
+    import numpy as np
+    import torch
+
+    from music2midi_tpu_torch.infer import Music2MIDI
+    from music2midi_tpu_torch.ops import decode_attention as da
+    from music2midi_tpu_torch.weights import restore_params
+
+    lines = []
+    # (a) the train CLI at (2, 2), 4 ranks over gloo, against one process:
+    # data prep's corpus with its train split repeated to one batch
+    data = work / "corpus"
+    data.mkdir()
+    for d in ("audio", "midi_numpy", "metadata"):
+        (data / d).symlink_to(corpus / d)
+    split = dict(np.load(corpus / "dataset_split.npz", allow_pickle=True))
+    train = [str(x) for x in split["train_id"]]
+    split["train_id"] = np.array((train * PAR_BATCH)[:PAR_BATCH])
+    np.savez(data / "dataset_split.npz", **split)
+    cfg = training_config().to_dict()
+    cfg["dataloader"] = {"batch_size": PAR_BATCH, "num_workers": 0}
+    cfg["trainer"]["log_every_n_steps"] = 1
+    (work / "par_config.json").write_text(json.dumps(cfg))
+
+    def cli(name):
+        return [str(data), "--init_from", str(RECORD), "--config",
+                str(work / "par_config.json"), "--out_dir",
+                str(work / "runs"), "--name", name, "--max_steps",
+                str(PAR_STEPS), "--device", CARD]
+
+    _, _, one_s = run_module("train", cli("one"), work)
+    out, _, mesh_s = torchrun(
+        PAR_DP * PAR_TP, ["-m", "music2midi_tpu_torch.train", *cli("mesh"),
+                          "--tp", str(PAR_TP)], work, backend="gloo")
+    card = "cuda:0" if CARD == "cuda" else CARD
+    for r in range(PAR_DP * PAR_TP):
+        line = f"rank {r}/{PAR_DP * PAR_TP}: backend gloo device {card}"
+        require(line in out, f"train CLI rank {r}: {out[-3000:]}")
+        print(f"  train CLI {line}", flush=True)
+    losses = {}
+    for name in ("one", "mesh"):
+        recs = [json.loads(x) for x in (work / "runs" / name / "log.jsonl")
+                .read_text().splitlines()]
+        losses[name] = [r["train/loss"] for r in recs if "train/loss" in r]
+        require(len(losses[name]) == PAR_STEPS, f"{name} log: {recs}")
+    np.testing.assert_allclose(losses["mesh"], losses["one"],
+                               rtol=PAR_TRAIN_RTOL)
+    one, _ = restore_params(work / "runs" / "one" / "ckpt")
+    got, _ = restore_params(work / "runs" / "mesh" / "ckpt")
+    require(sorted(one) == sorted(got), "parameter names differ")
+    worst = 0.0
+    for k, want in one.items():
+        w, g = want.double(), got[k].double()
+        scale = torch.maximum(w.abs(), w.square().mean().sqrt())
+        worst = max(worst, float(((g - w).abs() / scale).max()))
+    require(worst <= PAR_TRAIN_RTOL,
+            f"(2, 2) parameters {worst} off one process's (relative)")
+    full_ms, share_ms = dropout_draw_ms(data, training_config())
+    lines.append(
+        f"(a) train CLI {PAR_STEPS} fp32 steps from the model of record, "
+        f"batch {PAR_BATCH} (dropout 0.1, full masks on every rank): one "
+        f"process {one_s:.3f} s, 4 ranks at (2, 2) over gloo on one card "
+        f"{mesh_s:.3f} s (process starts, loader, validation and the "
+        f"gathered checkpoint included; not a scaling number); train/loss "
+        f"one {losses['one']} mesh {losses['mesh']}; parameters' largest "
+        f"difference {worst:.3e} of each element or its leaf's RMS "
+        f"(bar {PAR_TRAIN_RTOL}); a step's dropout draws at the full shapes "
+        f"every rank draws {full_ms:.4f} ms, at a rank's share "
+        f"{share_ms:.4f} ms [{smi}]")
+
+    # (b) the engine at (2, 2) over gloo, and (d) at (1, 1) over NCCL
+    chunks = engine._chunk_waveform(song)
+    base = [t.tolist() for t in engine.sample_tokens_batched(chunks)]
+    base32 = [t.tolist() for t in Music2MIDI.from_npz(RECORD, device=CARD)
+              .sample_tokens_batched(chunks)]
+    quality = token_agreement(base, base32)
+    res_dir = work / "engine"
+    secs = {}
+    for mode, nproc, backend in (("serve", PAR_DP * PAR_TP, "gloo"),
+                                 ("nccl", 1, None)):
+        _, _, secs[mode] = torchrun(
+            nproc, [str(ROOT / "chip_smoke.py"), "--parallel-worker", mode,
+                    str(res_dir), fixture_path], work, backend)
+    ranks = [json.loads((res_dir / f"serve_rank{r}.json").read_text())
+             for r in range(PAR_DP * PAR_TP)]
+    for res in ranks:
+        print(f"  engine rank {res['rank']}/{len(ranks)}: backend "
+              f"{res['backend']} device {res['device']}", flush=True)
+        require(res["backend"] == "gloo" and res["device"] == card,
+                f"engine rank {res['rank']}: {res['backend']} "
+                f"{res['device']}")
+        n = res["launches"]
+        require(n["decode_attention_int8"] > 0
+                and n["log_mel_spectrogram_cuda"] > 0,
+                f"engine rank {res['rank']}: kernels not launched: {n}")
+        require(res["local_heads"] == HEADS // PAR_TP, "heads a rank")
+        require(all(s["captured"] is False for s in res["stats"]),
+                f"the tp engine captured: {res['stats']}")
+        require(res["gate"][0], f"calibration gate on rank {res['rank']}: "
+                                f"{res['gate'][1]}")
+        require(res["bf16_tokens"] == ranks[0]["bf16_tokens"]
+                and res["fp32_tokens"] == ranks[0]["fp32_tokens"],
+                "the ranks returned different tokens")
+    for d in range(PAR_DP):  # a dp rank's tp ranks left the loop together
+        loops = {json.dumps([s["loop_steps"] for s in ranks[d * PAR_TP + t]
+                             ["stats"]]) for t in range(PAR_TP)}
+        require(len(loops) == 1, f"dp rank {d}'s tp ranks' steps {loops}")
+    same, total = token_agreement(ranks[0]["bf16_tokens"], base)
+    same32, total32 = token_agreement(ranks[0]["fp32_tokens"], base32)
+    mesh_quality = token_agreement(ranks[0]["bf16_tokens"], base32)
+    require(same / total >= TP_BF16_BAR,
+            f"bf16 tp engine vs one device {same / total} < {TP_BF16_BAR}")
+    require(same32 / total32 >= FP32_TOKEN_BAR,
+            f"fp32 tp engine vs one device {same32 / total32} < "
+            f"{FP32_TOKEN_BAR}")
+    lines.append(
+        f"(b) Music2MIDI(mesh=(2, 2)) bf16 on the 180-s song, 4 ranks over "
+        f"gloo on one card: launches by rank "
+        f"{[r['launches'] for r in ranks]} (kernel 3 at H/tp = "
+        f"{HEADS // PAR_TP}, B/dp = {ranks[0]['stats'][0]['batch_width'] // PAR_DP}); "
+        f"\"captured\": false; decode stats {ranks[0]['stats']}; greedy-token "
+        f"agreement with one device, bf16 {same / total:.6f} ({same}/{total},"
+        f" bar {TP_BF16_BAR}), fp32 {same32 / total32:.6f} ({same32}/"
+        f"{total32}, bar {FP32_TOKEN_BAR}); with one device's fp32 tokens: "
+        f"the mesh's bf16 {mesh_quality[0] / mesh_quality[1]:.6f}, one "
+        f"device's bf16 {quality[0] / quality[1]:.6f}; calibration gate pass "
+        f"({ranks[0]['gate'][1]}"
+        f"); song s by rank bf16 {[r['bf16_s'] for r in ranks]} fp32 "
+        f"{[r['fp32_s'] for r in ranks]} (eager loop, gloo all-reduces "
+        f"through the host; not a scaling number); torchrun {secs['serve']:.3f}"
+        f" s [{smi}]")
+
+    # (c) kernels 3 and 4 at the tp engine's widths against their plain
+    # versions
+    B, H = B_SERVE // PAR_DP, HEADS // PAR_TP
+    errs, times = [], []
+    (q, k, v, kn, vn, bias), = int8_attention_inputs(
+        SELF_LEN, True, 1, batch=B, heads=H)
+    rows = bias[0, :, 0, :]
+    plan = da.Int8AttentionPlan([(k, v)], rows, round_pv=True)
+    for n in (32, 128, SELF_LEN - 1):
+        step = n - 1
+        args = (q, (k[0][:, :, :n], k[1][..., :n]),
+                (v[0][:, :, :n], v[1][..., :n]), rows[:, SELF_LEN - n:],
+                step, kn, vn, True)
+        for rp in (False, True):
+            errs.append(check_attention(
+                da.decode_attention_int8(*args, round_pv=rp),
+                da.decode_attention_int8_plain(*args, round_pv=rp),
+                f"H={H} causal n {n} round_pv {rp}"))
+        got = plan.causal(0, q, kn, vn, step).clone()
+        require(torch.equal(got, da.decode_attention_int8(
+            *args, round_pv=True)), f"H={H} plan vs public function n {n}")
+        sd = torch.full((), step, dtype=torch.int32, device="cuda")
+        times.append((n, device_ms(lambda: plan.causal(0, q, kn, vn, sd),
+                                   200)[0]))
+    (q, ck, cv), = int8_attention_inputs(ENC_LEN, False, 1, batch=B,
+                                         heads=H)
+    for rp in (False, True):
+        errs.append(check_attention(
+            da.decode_attention_int8(q, ck, cv, None, None, None, None,
+                                     False, ENC_LEN, round_pv=rp),
+            da.decode_attention_int8_plain(q, ck, cv, None, None, None, None,
+                                           False, ENC_LEN, round_pv=rp),
+            f"H={H} cross round_pv {rp}"))
+    kt, vt = da.transpose_cross_entry(ck), da.transpose_cross_entry(cv)
+    errs.append(check_attention(
+        da.decode_attention_cross_t(q, kt, vt, ENC_LEN),
+        da.decode_attention_cross_t_plain(q, kt, vt, ENC_LEN),
+        f"H={H} cross_t"))
+    lines.append(
+        f"(c) kernels 3 and 4 at B {B}, H {H}: max |kernel - plain| "
+        f"{max(errs):.3e} (bar {ATTN_BAR}; causal n 32/128/1023 round_pv "
+        f"off/on, cross L {ENC_LEN}, transposed cross); kernel 3's plan "
+        f"device ms by n {times} [{smi}]")
+
+    # (d) NCCL at world size 1: the captured program, tokens bit for bit
+    res = json.loads((res_dir / "nccl_rank0.json").read_text())
+    print(f"  engine rank 0/1: backend {res['backend']} device "
+          f"{res['device']}", flush=True)
+    require(res["backend"] == "nccl", f"nccl rank: {res['backend']}")
+    require(all(s["captured"] is True for s in res["stats"]),
+            f"the dp-only engine did not capture: {res['stats']}")
+    require(res["bf16_tokens"] == base,
+            "NCCL world-1 engine tokens differ from one process's")
+    lines.append(
+        f"(d) NCCL at world size 1, mesh (1, 1): \"captured\": true, bf16 "
+        f"tokens equal one process's bit for bit "
+        f"({sum(len(t) for t in base)} tokens), song s {res['bf16_s']:.3f},"
+        f" torchrun {secs['nccl']:.3f} s [{smi}]")
+    for line in lines:
+        print(f"  {line}", flush=True)
+    return " | ".join(x.split(":")[0] for x in lines) + f" [{smi}]"
 
 
 def _wrappers() -> list:
@@ -1941,6 +2320,11 @@ def main() -> int:
 
     with Phase("entry_points") as ph:
         ph.info = entry_points_phase(smi, launches_of, engine, corpus)
+
+    with Phase("parallel") as ph, tempfile.TemporaryDirectory() as td:
+        path = str(Path(td) / "a4_22050.wav")
+        write_wav(path, fixture, fixture_sr)
+        ph.info = parallel_phase(smi, engine, song, corpus, path, Path(td))
     prep_dir.cleanup()
 
     with Phase("kernels"):
@@ -1954,4 +2338,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        parallel_worker(sys.argv[2], Path(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

@@ -12,6 +12,8 @@ Layering follows the JAX package:
                   conversion (HF / Lightning -> state_dict)
   infer         — decode loop (greedy or sampled), whole-song Music2MIDI
                   pipeline
+  parallel      — dp x tp over torch.distributed: process group, mesh,
+                  sharding rules, the tensor-parallel operators
   profiling     — model FLOPs (MFU) and the card's bf16 peak
   bench         — the headline benchmark (python3 -m music2midi_tpu_torch.bench)
   tokenizer     — MIDI notes <-> 400-token event vocabulary

@@ -55,6 +55,14 @@ the eager loop draws from the caller's generator.  JAX's random bits
 cannot be reproduced, so sampled tokens are held to their distribution
 and to one seed giving one sequence, not to JAX's tokens.
 
+A tensor-parallel shard of the model (``T5Model.tp_group``, its local
+config) decodes its heads and hidden units; each layer's o and wo
+products are summed over tp by an all-reduce, which leaves every tp rank
+the same logits, so the ranks take the same steps and leave the loop
+together.  Its program runs eagerly on a card too (``captures``): a gloo
+collective cannot be captured in a CUDA graph, and capturing NCCL's is
+not done here.
+
 ``DecodeConfig.pallas_attention`` and ``pallas_cross`` keep the JAX field
 names: they route the int8 attention blocks through the decode-attention
 kernels (``ops/decode_attention.py``), which run as CUDA kernels on CUDA
@@ -182,15 +190,24 @@ def _counted() -> tuple:
     return (_da.decode_attention_int8, _da.decode_attention_cross_t)
 
 
+def captures(model: T5Model, device) -> bool:
+    """Whether ``model``'s decode programs on ``device`` run as CUDA
+    graphs: on a card, unless the model is a tp shard (its loop holds
+    all-reduces, and runs eagerly)."""
+    return torch.device(device).type == "cuda" and model.tp_group is None
+
+
 class DecodeProgram:
     """The decode loop of one key, over static state; see the module
-    docstring.  ``run`` captures on a CUDA device (``capture=True``) and
-    runs eagerly otherwise."""
+    docstring.  ``run`` captures where ``captures`` says so and runs
+    eagerly otherwise."""
 
     def __init__(self, model: T5Model, cfg: T5Config, dcfg: DecodeConfig,
                  batch: int, enc_len: int, device):
         dev = torch.device(device)
         self.cfg, self.dcfg, self.device = cfg, dcfg, dev
+        self.tp_group = model.tp_group
+        self.captures = captures(model, dev)
         self.unroll = max(1, int(dcfg.unroll))
         self.n_gen = dcfg.max_length - 1
         self.buf_len = 1 + -(-self.n_gen // self.unroll) * self.unroll
@@ -267,7 +284,8 @@ class DecodeProgram:
         for _ in range(self.unroll):
             logits = decode_step(self.dparams, self.token, self.step,
                                  self.cache, self.cross, cfg, self.bias_rows,
-                                 self.plan, cache_len=phase)
+                                 self.plan, cache_len=phase,
+                                 tp_group=self.tp_group)
             nxt = _select_next(logits, dcfg, self.generator, self.suppress)
             nxt = torch.where(self.done, cfg.pad_token_id, nxt)
             self.done |= nxt == cfg.eos_token_id
@@ -324,12 +342,15 @@ class DecodeProgram:
             capture: Optional[bool] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One generation -> (tokens (B, max_length) int32, lengths (B,)
-        int32), fresh tensors; ``capture`` defaults to the device being
-        CUDA.  Another thread's call on this program waits for it."""
+        int32), fresh tensors; ``capture`` defaults to ``captures``.
+        Another thread's call on this program waits for it."""
         if capture is None:
-            capture = self.device.type == "cuda"
+            capture = self.captures
         if capture and self.device.type != "cuda":
             raise ValueError("a CUDA graph needs a CUDA device")
+        if capture and self.tp_group is not None:
+            raise ValueError("a tp shard's decode loop holds collectives; "
+                             "it runs eagerly (capture=False)")
         with self._lock:
             return self._run(model, encoder_hidden, generator, capture)
 
@@ -406,8 +427,8 @@ def generate_tokens(
     Greedy when ``dcfg.temperature == 0``, else temperature / top-k
     sampling from ``generator`` (on the decode device; a generator seeded
     0 when None, as the JAX loop takes ``PRNGKey(0)``).  The key's
-    ``DecodeProgram``: captured and replayed on a CUDA device, eager on
-    the CPU."""
+    ``DecodeProgram``: captured and replayed on a CUDA device (unless the
+    model is a tp shard), eager on the CPU."""
     return program_for(model, encoder_hidden, cfg, dcfg).run(
         model, encoder_hidden, generator)
 

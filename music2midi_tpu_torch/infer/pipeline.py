@@ -24,7 +24,17 @@ engine's knobs are attributes with its names and defaults:
 ``input_dither`` and ``mel_noise_floor``.
 
 Everything runs on ``device`` (``cuda`` unless the caller passes
-``device="cpu"``).  The decode loop of each batch is one captured program
+``device="cpu"``).  ``mesh`` (``parallel/mesh.py::make_mesh``, every rank
+of it building the engine and making the same calls) serves on a
+``(dp, tp)`` mesh, as the JAX engine's ``mesh``: each rank holds its tp
+shard of the parameters (H / tp heads, d_ff / tp) at the local config
+``t5_config``; a call's chunk batches are padded to a multiple of dp and
+each dp rank runs its rows (mel, encoder, decode; the o and wo products
+summed over tp), and the tokens are gathered over dp, so every rank
+returns the whole result.  A tp shard's decode loop runs eagerly
+(``infer/decode.py::captures``), which ``last_decode_stats`` records.
+
+The decode loop of each batch is one captured program
 (``infer/decode.py``): the first batch of a bucket captures it, later ones
 replay it.  ``generate_batch`` splits the host's work from the card's, as
 the JAX engine's dispatcher does: the calling thread stacks, pads and
@@ -79,10 +89,18 @@ from ..ops.mel import (
     log_mel_spectrogram_fast,
     num_frames,
 )
+from ..parallel.mesh import (
+    axis_group,
+    axis_size,
+    batch_sharding,
+    gather_tensor,
+    local_config,
+    shard_params,
+)
 from ..tokenizer import MidiTokenizer
 from ..utils import numpy_to_midi
 from ..weights import load_npz, restore_params
-from .decode import DecodeConfig, generate_tokens
+from .decode import DecodeConfig, captures, generate_tokens
 
 _BUCKET_SIZES = (8, 16, 32, 64, 128)
 
@@ -166,21 +184,30 @@ class Music2MIDI:
         decode_max_length: int = 1024,
         device_detokenize: bool = True,
         device=None,
+        mesh=None,
     ):
         """params: a flat state_dict (``weights.load_npz``,
-        ``weights.params_from_jax`` or ``models.t5.init_params``)."""
+        ``weights.params_from_jax`` or ``models.t5.init_params``), whole.
+        mesh: a ``(dp, tp)`` DeviceMesh (``parallel.make_mesh``) to serve
+        on; ``t5_config`` is then a tp rank's local config."""
         self.device = resolve_device(device)
         self.config = resolve_config(config)
-        self.t5_config: T5Config = t5_config_from(self.config, dtype=dtype)
+        self.mesh = mesh
+        self.t5_config: T5Config = local_config(
+            t5_config_from(self.config, dtype=dtype), mesh)
         self.mel_config: LogMelConfig = log_mel_config_from(self.config)
         self.tokenizer = MidiTokenizer(self.config)
-        sd = {k: torch.as_tensor(v) for k, v in params.items()}
-        self.model = T5Model.from_state_dict(sd, self.t5_config).to(self.device)
+        sd = shard_params({k: torch.as_tensor(v) for k, v in params.items()},
+                          mesh)
+        self.model = T5Model.from_state_dict(
+            sd, self.t5_config, axis_group(mesh, "tp")).to(self.device)
         self.decode_max_length = decode_max_length
         self.device_detokenize = device_detokenize
         self.num_conditioning = len(self.config.conditioning)
         # per batch of the last call: {"batch_width", "real_rows", "steps"
-        # (decode steps run = longest row), "tokens_real", "row_steps"}
+        # (decode steps run = longest row), "tokens_real", "row_steps"};
+        # under a mesh also "loop_steps" (this rank's decode loop: its
+        # rows' longest) and "captured" (it ran as a CUDA graph)
         self.last_decode_stats: List[dict] = []
         # serving mode: the cross blocks through the transposed-cross
         # kernel (ops/decode_attention.py::decode_attention_cross_t) over a
@@ -398,7 +425,8 @@ class Music2MIDI:
     def _staging_slots(self) -> List[_Slot]:
         """The two staging buffers, made on first use by the thread that
         drives the card (pinned memory is a CUDA allocation)."""
-        shape = (int(self.config.inference.batch_size), self._split_size())
+        shape = (self._width(int(self.config.inference.batch_size)),
+                 self._split_size())
         if self._slots is None or tuple(self._slots[0].host.shape) != shape:
             dtype = (torch.int16 if self.t5_config.dtype == torch.bfloat16
                      else torch.float32)
@@ -505,12 +533,19 @@ class Music2MIDI:
                 _dither_tile(split_size)
         return chunks
 
+    def _width(self, n: int) -> int:
+        """The batch width of n chunks: their bucket, rounded up to a
+        multiple of dp under a mesh (the JAX engine's ``_bucket``)."""
+        b = _bucket(n, int(self.config.inference.batch_size))
+        dp = axis_size(self.mesh, "dp")
+        return -(-b // dp) * dp
+
     def _pad_batch(self, batch: np.ndarray,
                    cond_index: Optional[Sequence[int]] = None):
-        """(n, split) chunks -> (chunks zero-padded to the bucket size,
-        (bucket, n_cond) conditioning indices)."""
+        """(n, split) chunks -> (chunks zero-padded to the batch width,
+        (width, n_cond) conditioning indices)."""
         n = len(batch)
-        b = _bucket(n, int(self.config.inference.batch_size))
+        b = self._width(n)
         if n < b:
             batch = np.concatenate(
                 [batch, np.zeros((b - n, batch.shape[1]), np.float32)]
@@ -527,8 +562,21 @@ class Music2MIDI:
         """A bucket-padded batch (host chunks or the device wave) whose
         first n rows are real -> their tokens
         (n, width) on the device, the columns trimmed to the longest real
-        row (the rest is PAD); appends the batch's decode stats."""
-        tokens, lengths = self._encode_and_generate(batch, cond, generator)
+        row (the rest is PAD); appends the batch's decode stats.  Under a
+        mesh this rank runs its dp rows and the tokens are gathered."""
+        mesh_stats = {}
+        if self.mesh is None:
+            tokens, lengths = self._encode_and_generate(batch, cond, generator)
+        else:
+            rows = batch_sharding(self.mesh)
+            tokens, lengths = self._encode_and_generate(
+                rows.local(batch), rows.local(cond), generator)
+            mesh_stats = {"loop_steps": int(lengths.max()) - 1,
+                          "captured": captures(self.model, self.device)}
+            # one gather over dp of tokens and lengths, exact in float32
+            packed = torch.cat([tokens, lengths[:, None]], dim=1).float()
+            packed = gather_tensor(packed, 0, self.mesh, "dp").to(torch.int32)
+            tokens, lengths = packed[:, :-1], packed[:, -1]
         len_h = lengths.cpu().numpy()
         self.last_decode_stats.append({
             "batch_width": int(len(batch)),
@@ -536,6 +584,7 @@ class Music2MIDI:
             "steps": int(len_h.max()) - 1,
             "tokens_real": int(len_h[:n].sum()) - n,
             "row_steps": (len_h[:n] - 1).tolist(),
+            **mesh_stats,
         })
         return tokens[:n, :int(len_h[:n].max())]
 
@@ -671,7 +720,7 @@ class Music2MIDI:
                     if f.done() and f.exception() is not None:
                         f.result()
                 n = len(rows)
-                b = _bucket(n, max_bs)
+                b = self._width(n)
                 slot = slots[len(pending) % len(slots)]
                 slot.free.wait()
                 slot.free.clear()

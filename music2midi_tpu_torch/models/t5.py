@@ -65,6 +65,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..ops.decode_attention import (
@@ -72,6 +73,7 @@ from ..ops.decode_attention import (
     decode_attention_cross_t,
     transpose_cross_entry,
 )
+from ..parallel.mesh import copy_to_tp_region, reduce_from_tp_region
 
 
 class T5Config(NamedTuple):
@@ -155,43 +157,66 @@ class DecoderLayer(nn.Module):
 
 
 class Stack(nn.Module):
-    def __init__(self, cfg: T5Config, layer_cls, n_layers: int):
+    def __init__(self, cfg: T5Config, layer_cls, n_layers: int,
+                 bias_heads: int):
         super().__init__()
         self.layers = nn.ModuleList(layer_cls(cfg) for _ in range(n_layers))
-        self.rel_bias = _p(cfg.relative_attention_num_buckets, cfg.num_heads)
+        self.rel_bias = _p(cfg.relative_attention_num_buckets, bias_heads)
         self.final_ln = _p(cfg.d_model)
 
 
 class T5Model(nn.Module):
-    """The parameter container; names match ``weights.load_npz`` keys."""
+    """The parameter container; names match ``weights.load_npz`` keys.
 
-    def __init__(self, cfg: T5Config, num_conditioning: Tuple[int, ...] = (6, 3)):
+    Under tensor parallelism (``tp_group``, a process group of tp ranks)
+    it holds one rank's shard (``parallel/mesh.py::shard_params``) at the
+    rank's local ``cfg`` (``parallel/mesh.py::local_config``: H / tp heads,
+    d_ff / tp): the relative-bias tables stay whole, and the forward
+    passes read the rank's head columns of them (``bias_table``)."""
+
+    def __init__(self, cfg: T5Config, num_conditioning: Tuple[int, ...] = (6, 3),
+                 tp_group=None):
         super().__init__()
+        tp = 1 if tp_group is None else dist.get_world_size(tp_group)
+        heads = cfg.num_heads * tp
         self.shared_embedding = _p(cfg.vocab_size, cfg.d_model)
-        self.encoder = Stack(cfg, EncoderLayer, cfg.num_layers)
-        self.decoder = Stack(cfg, DecoderLayer, cfg.num_decoder_layers)
+        self.encoder = Stack(cfg, EncoderLayer, cfg.num_layers, heads)
+        self.decoder = Stack(cfg, DecoderLayer, cfg.num_decoder_layers, heads)
         self.lm_head = _p(cfg.d_model, cfg.vocab_size)
         self.conditioning = nn.ParameterList(
             _p(n, cfg.d_model) for n in num_conditioning
         )
+        self.tp_group = tp_group
+        self.heads = None if tp_group is None else slice(
+            dist.get_rank(tp_group) * cfg.num_heads,
+            (dist.get_rank(tp_group) + 1) * cfg.num_heads)
 
     @classmethod
-    def from_state_dict(cls, sd: Dict[str, torch.Tensor], cfg: T5Config
-                        ) -> "T5Model":
+    def from_state_dict(cls, sd: Dict[str, torch.Tensor], cfg: T5Config,
+                        tp_group=None) -> "T5Model":
         """Build around the given tensors (their dtypes are kept: a bf16
         checkpoint stays bf16, as the JAX engine keeps it).  The parameters
         do not require grad (``train/loop.py::trainable_model`` builds
-        the trainer's float32 masters that do)."""
+        the trainer's float32 masters that do).  With ``tp_group``, ``sd``
+        is a tp rank's shard and ``cfg`` its local config."""
         n_cond = []
         while f"conditioning.{len(n_cond)}" in sd:
             n_cond.append(sd[f"conditioning.{len(n_cond)}"].shape[0])
         with torch.device("meta"):
-            model = cls(cfg, tuple(n_cond))
+            model = cls(cfg, tuple(n_cond), tp_group)
         model.load_state_dict(
             {k: nn.Parameter(v, requires_grad=False) for k, v in sd.items()},
             strict=True, assign=True,
         )
         return model
+
+
+def bias_table(model: T5Model, stack: Stack) -> torch.Tensor:
+    """A stack's relative-bias table at the model's heads: (buckets, H),
+    or a tp rank's columns of it."""
+    if model.heads is None:
+        return stack.rel_bias
+    return stack.rel_bias[:, model.heads]
 
 
 def init_params(seed: int, cfg: T5Config,
@@ -328,12 +353,18 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, l, h * d)
 
 
-def _quantize_w(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _quantize_w(w: torch.Tensor,
+                group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-output-column int8 weight quantization of (in, out)
     -> (int8 values (in, out), f32 scales (out,)): column amax / 127,
-    round half to even, as the JAX package's ``_quantize_w``."""
+    round half to even, as the JAX package's ``_quantize_w``.  ``group``:
+    the tp group of a row-split matrix, whose columns' amax spans every
+    rank's rows."""
     w = w.float()
-    scale = torch.clamp(w.abs().amax(dim=0) / 127.0, min=1e-12)
+    amax = w.abs().amax(dim=0)
+    if group is not None:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.clamp(amax / 127.0, min=1e-12)
     q = torch.clamp(torch.round(w / scale), -127.0, 127.0)
     return q.to(torch.int8), scale
 
@@ -355,16 +386,63 @@ def _proj(x: torch.Tensor, w, dtype) -> torch.Tensor:
     return torch.matmul(x.to(dtype), w.to(dtype))
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+def _proj_row(x: torch.Tensor, w, dtype, group) -> torch.Tensor:
+    """A row-split projection (o, wo) -> its output, replicated over tp:
+    ``_proj`` without tp (``group`` None); else the rank's partial
+    product in f32 (of the compute-dtype operands, scaled there for an
+    int8 pair), summed over tp (``reduce_from_tp_region``) and then
+    rounded once to the compute dtype, as one device rounds its f32
+    accumulator."""
+    if group is None:
+        return _proj(x, w, dtype)
+    if isinstance(w, tuple):
+        vals, scale = w
+        y = torch.matmul(x.to(dtype).float(), vals.float()) * scale
+    else:
+        y = torch.matmul(x.to(dtype).float(), w.to(dtype).float())
+    return reduce_from_tp_region(y, group).to(dtype)
+
+
+class MaskShard(NamedTuple):
+    """The dropout source of a sharded training step: each mask is drawn
+    from ``generator`` at its full shape (the global batch of ``batch``
+    rows, and all heads / the full d_ff at a ``split_dim`` site) and the
+    rank keeps its part (rows ``rows``, tp slice ``tp_rank`` of ``tp``),
+    so that the step draws one device's masks."""
+    generator: torch.Generator
+    rows: slice
+    batch: int
+    tp_rank: int = 0
+    tp: int = 1
+
+    def keep(self, shape, split_dim: Optional[int], rate: float,
+             device) -> torch.Tensor:
+        full = list(shape)
+        full[0] = self.batch
+        if split_dim is not None:
+            full[split_dim] *= self.tp
+        u = torch.rand(full, generator=self.generator, device=device)[self.rows]
+        if split_dim is not None:
+            n = shape[split_dim]
+            u = u.narrow(split_dim, self.tp_rank * n, n)
+        return u < (1.0 - rate)
+
+
+def dropout(x: torch.Tensor, rate: float, generator,
+            split_dim: Optional[int] = None) -> torch.Tensor:
     """Inverted dropout: each entry kept with probability ``1 - rate``
     (a uniform draw from ``generator`` below it) and scaled by
     ``1 / (1 - rate)`` in x's dtype; the identity when ``generator`` is
-    None (deterministic) or ``rate`` is 0."""
+    None (deterministic) or ``rate`` is 0.  ``generator`` may be a
+    ``MaskShard`` (a sharded step), for which ``split_dim`` names the dim
+    that tp splits here (heads, d_ff)."""
     if generator is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        < (1.0 - rate)
+    if isinstance(generator, MaskShard):
+        keep = generator.keep(x.shape, split_dim, rate, x.device)
+    else:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) \
+            < (1.0 - rate)
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
@@ -384,27 +462,30 @@ def attention(
     if mask is not None:
         scores = torch.where(mask, scores, -1e9)
     probs = torch.softmax(scores, dim=-1).to(dtype)
-    probs = dropout(probs, dropout_rate, generator)
+    probs = dropout(probs, dropout_rate, generator, split_dim=1)
     return torch.matmul(probs.float(), v.float()).to(dtype)
 
 
 def self_attention_block(p: Attention, x, bias, mask, cfg: T5Config,
-                         generator: Optional[torch.Generator] = None):
+                         generator=None, group=None):
+    """``group``: the tp group (the rank's heads; None: all heads)."""
+    x = copy_to_tp_region(x, group)
     q = _split_heads(_proj(x, p.q, cfg.dtype), cfg.num_heads, cfg.d_kv)
     k = _split_heads(_proj(x, p.k, cfg.dtype), cfg.num_heads, cfg.d_kv)
     v = _split_heads(_proj(x, p.v, cfg.dtype), cfg.num_heads, cfg.d_kv)
     out = attention(q, k, v, bias, mask, cfg.dtype, generator,
                     cfg.dropout_rate)
-    return _proj(_merge_heads(out), p.o, cfg.dtype)
+    return _proj_row(_merge_heads(out), p.o, cfg.dtype, group)
 
 
-def mlp_block(p: MLP, x, cfg: T5Config,
-              generator: Optional[torch.Generator] = None):
-    """Gated-GELU FFN: wo(dropout(gelu_new(wi_0 x) * (wi_1 x)))."""
+def mlp_block(p: MLP, x, cfg: T5Config, generator=None, group=None):
+    """Gated-GELU FFN: wo(dropout(gelu_new(wi_0 x) * (wi_1 x))); with a
+    tp ``group``, over the rank's d_ff / tp hidden units."""
+    x = copy_to_tp_region(x, group)
     gate = gelu_new(_proj(x, p.wi_0, cfg.dtype))
     lin = _proj(x, p.wi_1, cfg.dtype)
-    return _proj(dropout(gate * lin, cfg.dropout_rate, generator), p.wo,
-                 cfg.dtype)
+    return _proj_row(dropout(gate * lin, cfg.dropout_rate, generator,
+                             split_dim=-1), p.wo, cfg.dtype, group)
 
 
 # --------------------------------------------------------------------- #
@@ -430,20 +511,22 @@ def encode(model: T5Model, inputs_embeds: torch.Tensor, cfg: T5Config,
     ``deterministic=False`` dropout draws from ``generator``."""
     gen = _train_generator(deterministic, generator, cfg)
     rate = cfg.dropout_rate
-    enc = model.encoder
+    enc, tp = model.encoder, model.tp_group
     L = inputs_embeds.shape[1]
     pos = torch.arange(L, device=inputs_embeds.device)
     bias = position_bias(
-        enc.rel_bias, pos, pos, True, cfg.relative_attention_num_buckets,
+        bias_table(model, enc), pos, pos, True,
+        cfg.relative_attention_num_buckets,
         cfg.relative_attention_max_distance,
     )[None]
     x = dropout(inputs_embeds.to(cfg.dtype), rate, gen)
     for layer in enc.layers:
         h = rms_norm(x, layer.ln1, cfg.layer_norm_epsilon)
-        h = self_attention_block(layer.self_attn, h, bias, None, cfg, gen)
+        h = self_attention_block(layer.self_attn, h, bias, None, cfg, gen,
+                                 tp)
         x = x + dropout(h, rate, gen)
         h = rms_norm(x, layer.ln2, cfg.layer_norm_epsilon)
-        x = x + dropout(mlp_block(layer.mlp, h, cfg, gen), rate, gen)
+        x = x + dropout(mlp_block(layer.mlp, h, cfg, gen, tp), rate, gen)
     return dropout(rms_norm(x, enc.final_ln, cfg.layer_norm_epsilon), rate,
                    gen)
 
@@ -459,34 +542,39 @@ def decoder_forward(
     ``deterministic=False`` dropout draws from ``generator``."""
     gen = _train_generator(deterministic, generator, cfg)
     rate = cfg.dropout_rate
-    dec = model.decoder
+    dec, tp = model.decoder, model.tp_group
     T = decoder_input_ids.shape[1]
     dev = encoder_hidden.device
     x = dropout(model.shared_embedding[decoder_input_ids].to(cfg.dtype),
                 rate, gen)
     pos = torch.arange(T, device=dev)
     bias = position_bias(
-        dec.rel_bias, pos, pos, False, cfg.relative_attention_num_buckets,
+        bias_table(model, dec), pos, pos, False,
+        cfg.relative_attention_num_buckets,
         cfg.relative_attention_max_distance,
     )[None]
+    enc_tp = copy_to_tp_region(encoder_hidden, tp)
     causal = torch.ones((T, T), dtype=torch.bool, device=dev).tril()[None, None]
     if decoder_attention_mask is not None:
         causal = causal & decoder_attention_mask[:, None, None, :].bool()
     for layer in dec.layers:
         h = rms_norm(x, layer.ln1, cfg.layer_norm_epsilon)
-        h = self_attention_block(layer.self_attn, h, bias, causal, cfg, gen)
+        h = self_attention_block(layer.self_attn, h, bias, causal, cfg, gen,
+                                 tp)
         x = x + dropout(h, rate, gen)
-        h = rms_norm(x, layer.ln2, cfg.layer_norm_epsilon)
+        h = copy_to_tp_region(rms_norm(x, layer.ln2, cfg.layer_norm_epsilon),
+                              tp)
         ca = layer.cross_attn
         q = _split_heads(_proj(h, ca.q, cfg.dtype), cfg.num_heads, cfg.d_kv)
-        k = _split_heads(_proj(encoder_hidden, ca.k, cfg.dtype),
+        k = _split_heads(_proj(enc_tp, ca.k, cfg.dtype),
                          cfg.num_heads, cfg.d_kv)
-        v = _split_heads(_proj(encoder_hidden, ca.v, cfg.dtype),
+        v = _split_heads(_proj(enc_tp, ca.v, cfg.dtype),
                          cfg.num_heads, cfg.d_kv)
         a = attention(q, k, v, None, None, cfg.dtype, gen, rate)
-        x = x + dropout(_proj(_merge_heads(a), ca.o, cfg.dtype), rate, gen)
+        x = x + dropout(_proj_row(_merge_heads(a), ca.o, cfg.dtype, tp),
+                        rate, gen)
         h = rms_norm(x, layer.ln3, cfg.layer_norm_epsilon)
-        x = x + dropout(mlp_block(layer.mlp, h, cfg, gen), rate, gen)
+        x = x + dropout(mlp_block(layer.mlp, h, cfg, gen, tp), rate, gen)
     x = dropout(rms_norm(x, dec.final_ln, cfg.layer_norm_epsilon), rate, gen)
     return _proj(x, model.lm_head, cfg.dtype)
 
@@ -500,29 +588,36 @@ def shift_right(labels: torch.Tensor, cfg: T5Config) -> torch.Tensor:
     return torch.where(shifted == -100, cfg.pad_token_id, shifted)
 
 
-def cross_entropy_loss(logits: torch.Tensor,
-                       labels: torch.Tensor) -> torch.Tensor:
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       token_count: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """Token-mean cross entropy in fp32 with -100 ignored (HF
-    CrossEntropyLoss's default)."""
+    CrossEntropyLoss's default).  ``token_count``: the valid tokens the
+    sum is divided by (default: these labels'; a dp rank passes the
+    global batch's, so that the dp ranks' losses sum to its mean)."""
     valid = labels != -100
     safe = torch.where(valid, labels, 0).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-    return (nll * valid).sum() / valid.sum().clamp(min=1)
+    if token_count is None:
+        token_count = valid.sum()
+    return (nll * valid).sum() / token_count.clamp(min=1)
 
 
 def t5_forward(model: T5Model, inputs_embeds: torch.Tensor,
                labels: torch.Tensor, cfg: T5Config,
                deterministic: bool = True,
-               generator: Optional[torch.Generator] = None
+               generator=None,
+               token_count: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward -> (loss, logits), labels padded with -100: the
     encoder, then the decoder on the right-shifted labels (one generator
-    draws the encoder's masks, then the decoder's)."""
+    draws the encoder's masks, then the decoder's).  ``token_count``:
+    ``cross_entropy_loss``'s."""
     enc = encode(model, inputs_embeds, cfg, deterministic, generator)
     logits = decoder_forward(model, shift_right(labels, cfg), enc, cfg,
                              deterministic=deterministic, generator=generator)
-    return cross_entropy_loss(logits, labels), logits
+    return cross_entropy_loss(logits, labels, token_count), logits
 
 
 def conditioning_prepend(model: T5Model, features: torch.Tensor,
@@ -670,27 +765,32 @@ def prepare_decode_params(model: T5Model, cfg: T5Config,
     ``quantize_weights`` stores every projection, lm_head included, as an
     int8 (values, per-column scales) pair (``_quantize_w``), quantized from
     the weights as stored (the fused matrices from their concatenation);
-    the embedding stays in the compute dtype, as in the JAX package."""
+    the embedding stays in the compute dtype, as in the JAX package.
+
+    Under tensor parallelism the rank's shards are fused and cast, the
+    relative bias is the rank's head columns, and the scales of a
+    row-split matrix (o, wo) are those of the whole matrix."""
     dt = cfg.dtype
 
-    def cast(w):
-        return _quantize_w(w) if quantize_weights else w.to(dt)
+    def cast(w, group=None):
+        return _quantize_w(w, group) if quantize_weights else w.to(dt)
 
+    tp = model.tp_group
     layers = []
     for layer in model.decoder.layers:
         sa, ca, mlp = layer.self_attn, layer.cross_attn, layer.mlp
         layers.append({
             "ln1": layer.ln1, "ln2": layer.ln2, "ln3": layer.ln3,
             "sa_qkv": cast(torch.cat([sa.q, sa.k, sa.v], dim=1)),
-            "sa_o": cast(sa.o),
+            "sa_o": cast(sa.o, tp),
             "ca_q": cast(ca.q),
-            "ca_o": cast(ca.o),
+            "ca_o": cast(ca.o, tp),
             "mlp_wi": cast(torch.cat([mlp.wi_0, mlp.wi_1], dim=1)),
-            "mlp_wo": cast(mlp.wo),
+            "mlp_wo": cast(mlp.wo, tp),
         })
     return {
         "embedding": model.shared_embedding.to(dt),
-        "rel_bias": model.decoder.rel_bias,
+        "rel_bias": bias_table(model, model.decoder),
         "final_ln": model.decoder.final_ln,
         "lm_head": cast(model.lm_head),
         "layers": layers,
@@ -763,6 +863,7 @@ def decode_step(
     bias_rows: torch.Tensor,  # decoder_bias_rows(...)
     plan: Optional[Int8AttentionPlan] = None,  # int8_attention_plan(...)
     cache_len: Optional[int] = None,
+    tp_group=None,  # the model's tp group: caches and dparams a tp shard's
 ) -> torch.Tensor:
     """One incremental decoder step -> logits (B, vocab).  Writes this
     step's K/V into ``kv_cache`` at ``step`` (quantized at the cache's
@@ -790,7 +891,12 @@ def decode_step(
     engine's serving route, in the self blocks of the ``pallas_cross``
     route too, as there; it takes the +-7-level entries of a 4-bit cache
     as it takes the +-127 ones.  The kernels read the cache buffers in
-    place, never copies."""
+    place, never copies.
+
+    Under tensor parallelism (``tp_group``) ``cfg`` is the rank's local
+    config, the caches and ``dparams`` hold its heads and hidden units,
+    and the o and wo projections' partial products are summed over tp
+    (``_proj_row``): three all-reduces a layer."""
     dt = cfg.dtype
     H, D = cfg.num_heads, cfg.d_kv
     dev = token.device
@@ -823,7 +929,7 @@ def decode_step(
         else:
             h = attention(q, _prefix(k_entry, c), _prefix(v_entry, c),
                           bias_row, mask, dt)
-        x = x + _proj(_merge_heads(h), layer["sa_o"], dt)
+        x = x + _proj_row(_merge_heads(h), layer["sa_o"], dt, tp_group)
         h = rms_norm(x, layer["ln2"], cfg.layer_norm_epsilon)
         q = _split_heads(_proj(h, layer["ca_q"], dt), H, D)
         ck, cv = cross_kv.layers[i]
@@ -835,9 +941,10 @@ def decode_step(
             a = _attention_int8(q, ck, cv, None, None, dt)
         else:
             a = attention(q, ck, cv, None, None, dt)
-        x = x + _proj(_merge_heads(a), layer["ca_o"], dt)
+        x = x + _proj_row(_merge_heads(a), layer["ca_o"], dt, tp_group)
         h = rms_norm(x, layer["ln3"], cfg.layer_norm_epsilon)
         gate, lin = _proj(h, layer["mlp_wi"], dt).chunk(2, dim=-1)
-        x = x + _proj(gelu_new(gate) * lin, layer["mlp_wo"], dt)
+        x = x + _proj_row(gelu_new(gate) * lin, layer["mlp_wo"], dt,
+                          tp_group)
     x = rms_norm(x, dparams["final_ln"], cfg.layer_norm_epsilon)
     return _proj(x, dparams["lm_head"], dt)[:, 0, :]

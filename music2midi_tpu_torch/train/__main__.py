@@ -2,7 +2,8 @@
 ``python3 -m music2midi_tpu_torch.train DATA_DIR [--name --config --ckpt]``.
 
 Port of the repository's root ``train.py`` (the reference's Lightning
-trainer, reference train.py:17-41) on one device: HF-default Adafactor
+trainer, reference train.py:17-41), on one device or on a ``(dp, tp)``
+mesh of ranks: HF-default Adafactor
 with relative-step warmup (``--lr`` fixes it), gradient accumulation
 (``trainer.accumulate_grad_batches``), checkpoints with the config
 embedded (``OUT_DIR/NAME/ckpt``, the last 3 kept, and ``ckpt_best`` by
@@ -18,8 +19,17 @@ npz's ``__config__`` is such a file), default the packaged
 ``config.yaml`` values.  ``--init_from`` warm-starts the parameters from
 any checkpoint ``weights.py::restore_params`` reads (the model
 of record's npz among them), floating leaves cast to float32 masters;
-``--ckpt`` resumes the whole training state.  ``--tp`` (tensor
-parallelism) and several devices are not ported.
+``--ckpt`` resumes the whole training state.
+
+Several ranks: ``python3 -m torch.distributed.run --nproc_per_node N -m
+music2midi_tpu_torch.train DATA_DIR --tp T`` (``M2M_DIST_BACKEND=gloo``
+for ranks that share a card; ``parallel/distributed.py``).  The mesh is
+``(dp, tp)`` with dp = N / T, and the batch must divide by dp.  Every
+rank builds the same loader from the same seed and keeps its dp rows of
+each batch (``train/loop.py``), so the run follows the one-device
+trajectory; rank 0 alone writes ``log.jsonl``, the stdout log and the
+checkpoints, which are the one-device format (``--ckpt`` resumes under
+any mesh).  ``--tp 1`` in one process is the one-device run.
 """
 
 from __future__ import annotations
@@ -45,13 +55,16 @@ from ..models.t5 import (
     t5_config_from,
 )
 from ..ops.mel import log_mel_config_from, log_mel_spectrogram
+from ..parallel import distributed
+from ..parallel.mesh import local_config, make_mesh
 from ..tokenizer import MidiTokenizer
 from ..utils import numpy_to_midi
-from .adafactor import Adafactor, MultiSteps
+from .adafactor import MultiSteps
 from .checkpoint import restore_params, restore_train_state, save_train_state
 from .loop import (
     TrainState,
     make_eval_step,
+    make_optimizer,
     make_train_step,
     to_device,
     trainable_model,
@@ -89,7 +102,8 @@ def parse_args(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument(
         "--tp", type=int, default=1,
-        help="tensor-parallel degree: only 1 (one device) in the port",
+        help="tensor-parallel degree: ranks that split each model "
+             "(dp = ranks / tp)",
     )
     parser.add_argument("--max_steps", type=int, default=None)
     parser.add_argument(
@@ -147,14 +161,38 @@ def _notes_from_labels(labels, tokenizer):
     return out
 
 
+def _mesh(args, batch_size: int):
+    """-> (mesh or None, device, rank): the process group and its (dp, tp)
+    mesh when launched as ranks, else one device."""
+    info = distributed.maybe_initialize(device=args.device)
+    if not info:
+        if args.tp != 1:
+            raise SystemExit(f"--tp {args.tp} needs {args.tp} ranks: launch "
+                             "with python3 -m torch.distributed.run")
+        return None, resolve_device(args.device), 0
+    print(f"rank {info.rank}/{info.world_size}: backend {info.backend} "
+          f"device {info.device}", flush=True)
+    if args.tp < 1 or info.world_size % args.tp:
+        raise SystemExit(f"--tp {args.tp} does not divide "
+                         f"{info.world_size} ranks")
+    dp = info.world_size // args.tp
+    if batch_size % dp:
+        raise SystemExit(f"batch {batch_size} does not divide over "
+                         f"dp = {dp}")
+    return make_mesh(dp, args.tp, info.device.type), info.device, info.rank
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.tp != 1:
-        raise SystemExit(f"--tp {args.tp}: tensor parallelism is not "
-                         "ported; the port trains on one device (--tp 1)")
+    try:
+        _main(args)
+    finally:
+        distributed.shutdown()
 
-    device = resolve_device(args.device)
+
+def _main(args) -> None:
     config = load_json_config(args.config)
+    mesh, device, rank = _mesh(args, int(config.dataloader.batch_size))
     data_dir = Path(args.data_dir)
     split = np.load(data_dir / "dataset_split.npz", allow_pickle=True)
     train_set = Music2MIDIDataset(data_dir, split["train_id"], config)
@@ -190,24 +228,29 @@ def main(argv=None) -> None:
                     f"--init_from architecture mismatch: checkpoint has "
                     f"{theirs}, --config builds {t5_cfg}"
                 )
-        print(f"warm start: params from {args.init_from}")
+        if rank == 0:
+            print(f"warm start: params from {args.init_from}")
     else:
         params = {k: torch.from_numpy(v) for k, v in
                   init_params(args.seed, t5_cfg, num_cond).items()}
-    model = trainable_model(params, t5_cfg, device)
+    model = trainable_model(params, t5_cfg, device, mesh)
 
-    trainable = [p for p in model.parameters() if p.requires_grad]
-    optimizer = Adafactor(trainable, lr=args.lr)
+    optimizer = make_optimizer(model, lr=args.lr)
     accum = int(config.trainer.accumulate_grad_batches)
     if accum > 1:
         optimizer = MultiSteps(optimizer, accum)
     state = TrainState(model, optimizer)
     if args.ckpt:
-        state, _ = restore_train_state(args.ckpt, state)
-        print(f"resumed from {args.ckpt} at step {state.step}")
+        state, _ = restore_train_state(args.ckpt, state, mesh)
+        if rank == 0:
+            print(f"resumed from {args.ckpt} at step {state.step}")
 
     out_dir = Path(args.out_dir) / args.name.replace(" ", "_").replace(
         ":", "-")
+    if rank != 0:  # rank 0 alone writes
+        _train(args, config, state, train_loader, val_loader, t5_cfg,
+               mel_cfg, tokenizer, out_dir, lambda record: None, mesh)
+        return
     out_dir.mkdir(parents=True, exist_ok=True)
 
     wandb_run = None
@@ -233,14 +276,17 @@ def main(argv=None) -> None:
                   flush=True)
 
         _train(args, config, state, train_loader, val_loader, t5_cfg,
-               mel_cfg, tokenizer, out_dir, log)
+               mel_cfg, tokenizer, out_dir, log, mesh)
 
 
 def _train(args, config, state, train_loader, val_loader, t5_cfg, mel_cfg,
-           tokenizer, out_dir: Path, log) -> None:
-    """The loop of ``main``: steps, logs, validation and checkpoints."""
-    step_fn = make_train_step(t5_cfg, mel_cfg)
-    eval_fn = make_eval_step(t5_cfg, mel_cfg)
+           tokenizer, out_dir: Path, log, mesh=None) -> None:
+    """The loop of ``main``: steps, logs, validation and checkpoints.  On a
+    ``mesh`` every rank runs it (the steps, validation and saves hold
+    collectives); ``log`` writes on rank 0 only, as do the saves."""
+    step_fn = make_train_step(t5_cfg, mel_cfg, mesh)
+    eval_fn = make_eval_step(t5_cfg, mel_cfg, mesh)
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
     log_every = int(config.trainer.log_every_n_steps)
     max_epochs = int(config.trainer.max_epochs)
     steps_per_epoch = max(1, len(train_loader))
@@ -257,13 +303,15 @@ def _train(args, config, state, train_loader, val_loader, t5_cfg, mel_cfg,
     # unconditionally)
     best_val = float("inf")
     best_val_file = out_dir / "ckpt_best" / "best_val.json"
-    if args.ckpt and best_val_file.exists():
+    if args.ckpt and best_val_file.exists():  # every rank reads the bar
         try:
             best_val = float(json.loads(
                 best_val_file.read_text())["val_loss"])
-            print(f"resumed best-val bar: {best_val:.6f}")
+            if rank0:
+                print(f"resumed best-val bar: {best_val:.6f}")
         except (ValueError, KeyError, TypeError) as e:
-            print(f"ignoring unreadable {best_val_file}: {e!r}")
+            if rank0:
+                print(f"ignoring unreadable {best_val_file}: {e!r}")
 
     def run_val(epoch=None):
         nonlocal best_val
@@ -275,19 +323,22 @@ def _train(args, config, state, train_loader, val_loader, t5_cfg, mel_cfg,
                 rec["epoch"] = epoch
             if mean < best_val:
                 best_val = mean
-                save_train_state(out_dir / "ckpt_best", state, config)
-                best_val_file.write_text(json.dumps(
-                    {"val_loss": mean, "step": step}))
+                save_train_state(out_dir / "ckpt_best", state, config,
+                                 mesh=mesh)
+                if rank0:
+                    best_val_file.write_text(json.dumps(
+                        {"val_loss": mean, "step": step}))
                 rec["val/is_best"] = True
             log(rec)
 
     def save_ckpt():
-        save_train_state(out_dir / "ckpt", state, config)
+        save_train_state(out_dir / "ckpt", state, config, mesh=mesh)
 
     def score(batch) -> float:
+        # every rank decodes the whole batch; its tp group in step
         return evaluate_training_batch(
-            state.model, batch, t5_cfg, mel_cfg, tokenizer,
-            _notes_from_labels(batch.labels, tokenizer))
+            state.model, batch, local_config(t5_cfg, mesh), mel_cfg,
+            tokenizer, _notes_from_labels(batch.labels, tokenizer))
 
     # --steps_per_dispatch K: JAX scans K steps in one dispatch and logs
     # once a group; eager PyTorch launches step by step, so the port takes
@@ -316,7 +367,7 @@ def _train(args, config, state, train_loader, val_loader, t5_cfg, mel_cfg,
             _, loss = step_fn(state, batch, args.seed)
             step += 1
             in_group += 1
-            if step == run_start_step + 1:
+            if step == run_start_step + 1 and rank0:
                 print(f"first step done in {time.time() - t_start:.1f}s",
                       flush=True)
             stop = bool(args.max_steps and step >= args.max_steps)

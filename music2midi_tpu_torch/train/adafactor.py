@@ -14,6 +14,13 @@ float32 on the host as the JAX transform computes them in float32; every
 tensor op runs on the parameter's device with no read-back.  The moments
 are float32 whatever the parameter dtype.
 
+Under tensor parallelism a parameter may be a tp rank's slice
+(``parallel/mesh.py``), and the statistics that span the whole matrix
+(RMS(param), the row and column means of g^2, the mean of the row factor,
+the update's RMS) are then sums all-reduced over the tp group, so that a
+sharded step updates each slice as the unsharded optimizer updates the
+matrix; a split moment keeps the slice's shape.
+
 ``MultiSteps`` is ``optax.MultiSteps(every_k_schedule=k)``: the running
 mean of k micro-batch gradients, one inner step per k, so the inner
 step count moves once per k calls.
@@ -21,16 +28,13 @@ step count moves once per k calls.
 
 from __future__ import annotations
 
-from typing import Iterable, List, Optional
+from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _MOMENTS = ("row", "col", "v")
-
-
-def _rms(x: torch.Tensor) -> torch.Tensor:
-    return x.square().mean().sqrt()
 
 
 _EPS1, _EPS2 = 1e-30, 1e-3  # added to g^2; the floor of RMS(param)
@@ -43,11 +47,33 @@ class Adafactor(torch.optim.Optimizer):
     warm-up (min(1e-6 * step, 1/sqrt(step))) when ``warmup_init``, else
     min(1e-2, 1/sqrt(step)); a fixed ``lr`` turns the relative step off,
     as HF's validation makes lr and relative_step exclusive.  No weight
-    decay, as the reference trains."""
+    decay, as the reference trains.
+
+    ``tp_group`` with ``split_dims`` (per parameter of ``params``, the dim
+    split over tp, or None): the tensor-parallel statistics of the module
+    docstring."""
 
     def __init__(self, params: Iterable[torch.Tensor],
-                 lr: Optional[float] = None, warmup_init: bool = True):
+                 lr: Optional[float] = None, warmup_init: bool = True,
+                 tp_group=None,
+                 split_dims: Optional[Sequence[Optional[int]]] = None):
+        params = list(params)
         super().__init__(params, dict(lr=lr, warmup_init=warmup_init))
+        self.tp_group = tp_group
+        self.tp = 1 if tp_group is None else dist.get_world_size(tp_group)
+        self._split = {} if tp_group is None else {
+            p: d for p, d in zip(params, split_dims) if d is not None}
+
+    def _mean(self, x: torch.Tensor, dim: Optional[int] = None,
+              sharded: bool = False, keepdim: bool = False) -> torch.Tensor:
+        """x's mean over ``dim`` (all of x when None); when ``sharded``
+        (that dim is split over tp) the whole matrix's, from sums
+        all-reduced over tp."""
+        if not sharded:
+            return x.mean() if dim is None else x.mean(dim, keepdim=keepdim)
+        s = x.sum() if dim is None else x.sum(dim, keepdim=keepdim)
+        dist.all_reduce(s, group=self.tp_group)
+        return s / ((x.numel() if dim is None else x.shape[dim]) * self.tp)
 
     @staticmethod
     def _scalars(step: int, group: dict):
@@ -89,20 +115,27 @@ class Adafactor(torch.optim.Optimizer):
                 st["step"] += 1
                 beta2t, one_minus, rel = self._scalars(st["step"], group)
                 g = p.grad.float()
+                split = self._split.get(p)  # 0 (rows) or 1 (columns)
+                mean = self._mean
                 # parameter scale: the step is relative to RMS(param)
-                lr = _rms(p.float()).clamp(min=_EPS2) * rel
+                lr = mean(p.float().square(), sharded=split is not None
+                          ).sqrt().clamp(min=_EPS2) * rel
                 sq = g.square() + _EPS1
                 if p.ndim >= 2:
-                    row = st["row"].mul_(beta2t).add_(sq.mean(-1), alpha=one_minus)
-                    col = st["col"].mul_(beta2t).add_(sq.mean(-2), alpha=one_minus)
+                    row = st["row"].mul_(beta2t).add_(
+                        mean(sq, -1, split == 1), alpha=one_minus)
+                    col = st["col"].mul_(beta2t).add_(
+                        mean(sq, -2, split == 0), alpha=one_minus)
                     # approx rsqrt(v): rows normalised by their mean
-                    r = torch.rsqrt(row / row.mean(-1, keepdim=True))[..., None]
+                    r = torch.rsqrt(row / mean(row, -1, split == 0,
+                                               keepdim=True))[..., None]
                     c = torch.rsqrt(col)[..., None, :]
                     upd = r * c * g
                 else:
                     v = st["v"].mul_(beta2t).add_(sq, alpha=one_minus)
                     upd = torch.rsqrt(v) * g
-                upd = upd / (_rms(upd) / _CLIP).clamp(min=1.0)
+                upd_rms = mean(upd.square(), sharded=split is not None).sqrt()
+                upd = upd / (upd_rms / _CLIP).clamp(min=1.0)
                 p.add_((-(upd * lr)).to(p.dtype))
         return loss
 

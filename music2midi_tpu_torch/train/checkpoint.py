@@ -18,6 +18,13 @@ Parameters are flat state_dicts (``weights.py``); a key component that is
 all digits is a list index.  The readers (``restore_params``,
 ``latest_checkpoint``, the npz loader) are ``weights.py``'s, so serving
 loads an export without the training package.
+
+On a ``(dp, tp)`` mesh a training checkpoint is still the one-device
+format: every rank calls ``save_train_state`` (the gathers are
+collectives), which gathers the parameters and the Adafactor moments
+(and ``MultiSteps``' accumulators) of the tp shards, and rank 0 alone
+writes; ``restore_train_state`` slices a saved state to the restoring
+rank's shard, so a checkpoint resumes under any ``(dp, tp)``.
 """
 
 from __future__ import annotations
@@ -29,8 +36,18 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import ConfigNode
+from ..parallel.mesh import (
+    gather_params,
+    gather_tensor,
+    param_pspecs,
+    shard_params,
+    shard_tensor,
+    split_dim,
+)
+from .adafactor import _MOMENTS
 from ..weights import (
     PARAMS_FILE,
     STATE_FILE,
@@ -48,26 +65,62 @@ _NPZ_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
                "float32": torch.float32}
 
 
-def _cpu_state_dict(model) -> StateDict:
-    return {k: v.detach().to("cpu", copy=True)
-            for k, v in model.state_dict().items()}
-
-
 def _write_config(path: Path, config: Optional[ConfigNode]) -> None:
     if config is not None:
         (path / "config.json").write_text(json.dumps(config.to_dict()))
 
 
+def _moment_split(spec: Optional[str], key: str) -> Optional[int]:
+    """The dim of an optimizer tensor split over tp, for a parameter of
+    ``param_pspecs`` entry ``spec``: a ``MultiSteps`` accumulator ("acc")
+    as its parameter; the column moment of a column-split matrix and the
+    row moment of a row-split one along their only dim."""
+    if key == "acc":
+        return split_dim(spec)
+    return 0 if (spec, key) in (("col", "col"), ("row", "row")) else None
+
+
+def _map_optimizer_state(sd: dict, names: Sequence[str], fn) -> dict:
+    """An optimizer state_dict (Adafactor's, or MultiSteps') with
+    ``fn(param name, key, tensor)`` applied to every moment and
+    accumulator; the optimizer's parameters are named ``names``."""
+    if "inner" in sd:
+        return {**sd, "acc": [fn(n, "acc", a) for n, a in zip(names, sd["acc"])],
+                "inner": _map_optimizer_state(sd["inner"], names, fn)}
+    state = {i: {k: fn(names[int(i)], k, v) if k in _MOMENTS else v
+                 for k, v in st.items()}
+             for i, st in sd["state"].items()}
+    return {**sd, "state": state}
+
+
+def _trainable_names(model) -> list:
+    return [n for n, p in model.named_parameters() if p.requires_grad]
+
+
 def save_train_state(ckpt_dir: Union[str, Path], state,
                      config: Optional[ConfigNode] = None,
-                     keep: int = 3) -> Path:
+                     keep: int = 3, mesh=None) -> Path:
     """Save {params, opt_state, step} (+ config JSON) under
-    ckpt_dir/step_{N:08d}; keep the last ``keep`` steps.  -> the step dir."""
+    ckpt_dir/step_{N:08d}; keep the last ``keep`` steps.  -> the step dir.
+    On a ``mesh``: every rank calls it; the tp shards are gathered and rank
+    0 writes."""
     ckpt_dir = Path(ckpt_dir).resolve()
     path = ckpt_dir / f"step_{int(state.step):08d}"
+    params = state.model.state_dict()
+    opt_state = state.optimizer.state_dict()
+    if mesh is not None:
+        specs = param_pspecs(params)
+        params = gather_params(params, mesh)
+        opt_state = _map_optimizer_state(
+            opt_state, _trainable_names(state.model),
+            lambda n, k, t: gather_tensor(t, _moment_split(specs[n], k),
+                                          mesh))
+        if dist.get_rank() != 0:
+            return path
     path.mkdir(parents=True, exist_ok=True)
-    torch.save({"params": _cpu_state_dict(state.model),
-                "opt_state": state.optimizer.state_dict(),
+    torch.save({"params": {k: v.detach().to("cpu", copy=True)
+                           for k, v in params.items()},
+                "opt_state": opt_state,
                 "step": int(state.step)}, path / STATE_FILE)
     _write_config(path, config)
     _prune_old(ckpt_dir, keep)
@@ -79,21 +132,30 @@ def _prune_old(ckpt_dir: Path, keep: int) -> None:
         shutil.rmtree(old, ignore_errors=True)
 
 
-def restore_train_state(path: Union[str, Path], state
+def restore_train_state(path: Union[str, Path], state, mesh=None
                         ) -> Tuple[object, Optional[ConfigNode]]:
     """Restore into ``state`` (a TrainState built as the saved one was:
     the same parameter names and optimizer) from a step dir, or from a
-    training root taking its latest step.  -> (state, config | None)."""
+    training root taking its latest step.  -> (state, config | None).
+    On a ``mesh`` the saved (whole) state is sliced to this rank's
+    shard."""
     path = step_dir(Path(path).resolve())
     saved = load_torch(path / STATE_FILE)
+    specs = param_pspecs(saved["params"])
     with torch.no_grad():
         own = state.model.state_dict()
         if set(own) != set(saved["params"]):
             raise ValueError(f"{path}: parameter names differ from the "
                              "model's")
-        for k, v in saved["params"].items():
+        for k, v in shard_params(saved["params"], mesh).items():
             own[k].copy_(v)
-    state.optimizer.load_state_dict(saved["opt_state"])
+    opt_state = saved["opt_state"]
+    if mesh is not None:
+        opt_state = _map_optimizer_state(
+            opt_state, _trainable_names(state.model),
+            lambda n, k, t: shard_tensor(t, _moment_split(specs[n], k),
+                                         mesh))
+    state.optimizer.load_state_dict(opt_state)
     state.step = int(saved["step"])
     return state, read_config(path)
 

@@ -19,18 +19,53 @@ Dropout draws from a ``torch.Generator`` on the model's device seeded from
 into its key: a run resumed at step k draws the masks of an unbroken run.
 Gradient accumulation is ``adafactor.MultiSteps`` around the optimizer
 (``optax.MultiSteps``); ``step`` counts micro-batches, as in JAX.
+
+On a ``(dp, tp)`` mesh (``parallel/mesh.py``) every rank is given the
+global batch and keeps its dp rows; the model is the rank's tp shard
+(``trainable_model(..., mesh)``).  The JAX mesh's step is one program
+whose loss is the token mean over the global batch; here each rank
+divides its token sum by the global batch's valid-token count (an
+all-reduce over dp), so the dp ranks' losses sum to that mean and their
+gradients SUM to its gradient.  DDP's wrapper cannot do this (the
+forward is ``t5_forward`` on the module's parameters, never
+``module.forward``, so its reducer never arms); ``reduce_gradients`` sums
+every gradient over dp in one all-reduce of a flat float32 buffer, as
+the JAX step emits one psum, after the relative-bias tables' gradients
+are summed over tp (a tp rank reads only its heads' columns).  Each rank
+draws every dropout mask at its full shape from the step's generator and
+keeps its part (``models/t5.py::MaskShard``), so a sharded step is the
+one-device step.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..models.t5 import T5Config, T5Model, conditioning_prepend, t5_forward
+from ..models.t5 import (
+    MaskShard,
+    T5Config,
+    T5Model,
+    conditioning_prepend,
+    t5_forward,
+)
 from ..ops.mel import LogMelConfig, log_mel_spectrogram
+from ..parallel.mesh import (
+    axis_group,
+    axis_rank,
+    axis_size,
+    batch_sharding,
+    batch_slice,
+    local_config,
+    param_pspecs,
+    shard_params,
+    split_dim,
+)
+from .adafactor import Adafactor
 
 
 class Batch(NamedTuple):
@@ -51,15 +86,31 @@ class TrainState:
 
 
 def trainable_model(state_dict: Dict[str, torch.Tensor], cfg: T5Config,
-                    device) -> T5Model:
+                    device, mesh=None) -> T5Model:
     """A T5Model for training on ``device``: floating leaves cast to
-    float32 masters that require grad, integer leaves kept as they are."""
+    float32 masters that require grad, integer leaves kept as they are.
+    On a ``mesh``, this rank's tp shard of the full ``state_dict`` at the
+    local config of the full ``cfg``."""
     sd = {k: v.float() if v.is_floating_point() else v
-          for k, v in state_dict.items()}
-    model = T5Model.from_state_dict(sd, cfg).to(device)
+          for k, v in shard_params(state_dict, mesh).items()}
+    model = T5Model.from_state_dict(sd, local_config(cfg, mesh),
+                                    axis_group(mesh, "tp")).to(device)
     for p in model.parameters():
         p.requires_grad_(p.is_floating_point())
     return model
+
+
+def make_optimizer(model: T5Model, lr: Optional[float] = None,
+                   warmup_init: bool = True) -> Adafactor:
+    """HF-default Adafactor over the model's trainable parameters; for a
+    tp shard with the tp group and each parameter's split dim, so that
+    its statistics span the whole matrices."""
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    specs = param_pspecs(names)
+    params = dict(model.named_parameters())
+    return Adafactor([params[n] for n in names], lr=lr,
+                     warmup_init=warmup_init, tp_group=model.tp_group,
+                     split_dims=[split_dim(specs[n]) for n in names])
 
 
 def to_device(batch: Batch, device) -> Batch:
@@ -81,12 +132,20 @@ def dropout_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 def _loss(model: T5Model, batch: Batch, generator, t5_cfg: T5Config,
-          mel_cfg: LogMelConfig, deterministic: bool) -> torch.Tensor:
+          mel_cfg: LogMelConfig, deterministic: bool,
+          dp_group=None) -> torch.Tensor:
+    """The batch's loss; with a ``dp_group``, this rank's token sum over
+    the global batch's valid-token count."""
+    count = None
+    if dp_group is not None:
+        count = (batch.labels != -100).sum()
+        dist.all_reduce(count, group=dp_group)
     with torch.no_grad():
         mel = log_mel_spectrogram(batch.waveform, mel_cfg)
     embeds = conditioning_prepend(model, mel, batch.cond_index)
     loss, _ = t5_forward(model, embeds, batch.labels, t5_cfg,
-                         deterministic=deterministic, generator=generator)
+                         deterministic=deterministic, generator=generator,
+                         token_count=count)
     return loss
 
 
@@ -94,31 +153,77 @@ def _device(state: TrainState) -> torch.device:
     return state.model.shared_embedding.device
 
 
-def make_train_step(t5_cfg: T5Config, mel_cfg: LogMelConfig):
-    """-> (state, batch, seed) -> (state, loss): one step, in place."""
+def reduce_gradients(model: T5Model, mesh=None) -> None:
+    """The sharded step's gradient collectives, in place: the relative-bias
+    tables' gradients summed over tp, then every gradient summed over dp
+    in one all-reduce of a flat float32 buffer.  Nothing without a
+    mesh."""
+    tp = model.tp_group
+    if tp is not None:
+        _sum_grads([model.encoder.rel_bias, model.decoder.rel_bias], tp)
+    dp = axis_group(mesh, "dp")
+    if dp is not None:
+        _sum_grads([p for p in model.parameters() if p.grad is not None], dp)
+
+
+def _sum_grads(params, group) -> None:
+    flat = torch.cat([p.grad.float().reshape(-1) for p in params])
+    dist.all_reduce(flat, group=group)
+    offset = 0
+    for p in params:
+        n = p.grad.numel()
+        p.grad.copy_(flat[offset:offset + n].view_as(p.grad))
+        offset += n
+
+
+def _local_batch(batch: Batch, mesh, t5_cfg: T5Config, seed: int, step: int,
+                 dev) -> Tuple[Batch, object]:
+    """(this rank's rows of the global batch on ``dev``, the step's dropout
+    source: None, its generator, or on a mesh a ``MaskShard`` of it)."""
+    gen = (dropout_generator(seed, step, dev)
+           if t5_cfg.dropout_rate > 0.0 else None)
+    if mesh is None:
+        return to_device(batch, dev), gen
+    n = len(batch.waveform)
+    if gen is not None:
+        gen = MaskShard(gen, batch_slice(mesh, n), n, axis_rank(mesh, "tp"),
+                        axis_size(mesh, "tp"))
+    rows = batch_sharding(mesh)
+    return to_device(Batch(*(rows.local(leaf) for leaf in batch)), dev), gen
+
+
+def make_train_step(t5_cfg: T5Config, mel_cfg: LogMelConfig, mesh=None):
+    """-> (state, batch, seed) -> (state, loss): one step, in place.  On a
+    ``mesh`` (``t5_cfg`` the full config, the state's model a rank's
+    shard), ``batch`` is the global batch and the loss is its mean, the
+    same on every rank."""
+    cfg = local_config(t5_cfg, mesh)
+    dp = axis_group(mesh, "dp")
 
     def train_step(state: TrainState, batch: Batch,
                    seed: int = 0) -> Tuple[TrainState, torch.Tensor]:
         dev = _device(state)
-        batch = to_device(batch, dev)
-        gen = (dropout_generator(seed, state.step, dev)
-               if t5_cfg.dropout_rate > 0.0 else None)
+        batch, gen = _local_batch(batch, mesh, cfg, seed, state.step, dev)
         state.optimizer.zero_grad(set_to_none=True)
-        loss = _loss(state.model, batch, gen, t5_cfg, mel_cfg, False)
+        loss = _loss(state.model, batch, gen, cfg, mel_cfg, False, dp)
         loss.backward()
+        reduce_gradients(state.model, mesh)
         state.optimizer.step()
         state.step += 1
-        return state, loss.detach()
+        loss = loss.detach()
+        if dp is not None:
+            dist.all_reduce(loss, group=dp)
+        return state, loss
 
     return train_step
 
 
-def make_multi_step(t5_cfg: T5Config, mel_cfg: LogMelConfig):
+def make_multi_step(t5_cfg: T5Config, mel_cfg: LogMelConfig, mesh=None):
     """-> (state, stacked_batches, seed) -> (state, losses (K,)): K steps
     over a Batch whose leaves carry a leading step axis, with
     ``train_step``'s exact trajectory (the JAX package's ``lax.scan``,
     here a loop)."""
-    train_step = make_train_step(t5_cfg, mel_cfg)
+    train_step = make_train_step(t5_cfg, mel_cfg, mesh)
 
     def multi_step(state: TrainState, batches: Batch,
                    seed: int = 0) -> Tuple[TrainState, torch.Tensor]:
@@ -132,13 +237,25 @@ def make_multi_step(t5_cfg: T5Config, mel_cfg: LogMelConfig):
     return multi_step
 
 
-def make_eval_step(t5_cfg: T5Config, mel_cfg: LogMelConfig):
-    """-> (model, batch) -> loss, deterministic and without grad."""
+def make_eval_step(t5_cfg: T5Config, mel_cfg: LogMelConfig, mesh=None):
+    """-> (model, batch) -> loss, deterministic and without grad; on a
+    ``mesh`` as ``make_train_step``'s (the global batch's loss, on every
+    rank), and a batch whose rows do not split over dp (a validation
+    split's last batch) is run whole on every rank."""
+    cfg = local_config(t5_cfg, mesh)
+    dp, n_dp = axis_group(mesh, "dp"), axis_size(mesh, "dp")
 
     @torch.no_grad()
     def eval_step(model: T5Model, batch: Batch) -> torch.Tensor:
+        group = dp if len(batch.waveform) % n_dp == 0 else None
+        if group is not None:
+            batch = Batch(*(batch_sharding(mesh).local(leaf)
+                            for leaf in batch))
         batch = to_device(batch, model.shared_embedding.device)
-        return _loss(model, batch, None, t5_cfg, mel_cfg, True)
+        loss = _loss(model, batch, None, cfg, mel_cfg, True, group)
+        if group is not None:
+            dist.all_reduce(loss, group=group)
+        return loss
 
     return eval_step
 

@@ -81,7 +81,9 @@ def test_port_sources_import_no_blocked_package():
                  "train/__main__.py", "data/dataset.py", "evaluation.py",
                  "dsp.py", "evaluate.py", "serve_batch.py", "webui.py",
                  "serve/batcher.py", "serve/webui_utils.py",
-                 "plot_midi.py", "plot_interactive.py", *PREP):
+                 "plot_midi.py", "plot_interactive.py",
+                 "parallel/__init__.py", "parallel/distributed.py",
+                 "parallel/mesh.py", *PREP):
         assert PKG / name in files
     bad = [
         f"{p.relative_to(ROOT)}:{line} imports {root}"
