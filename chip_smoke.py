@@ -164,16 +164,30 @@ and exits non-zero, and nothing is caught and passed over:
      one-process engine's bit for bit.  No time here is a scaling
      number: the ranks share one card and every gloo collective goes
      through the host;
-  16. the ``kernels`` JSON line.
+  16. configs, with the port alone in a temporary directory: the
+     training recipe of record, ``configs/synth16k_aug_r5.yaml`` (YAML,
+     16-kHz training windows, augmentation with its 64-GB cache cap),
+     through the CLIs: the prep chain with ``--config`` (20 clean songs of
+     24 s: a train split that fills one batch of the recipe's 16), the
+     recipe's loader in a process of its own (``--loader-worker``: 128
+     windows, windows/s, the augment cache's size and the process's peak
+     RSS, far under the cap), ``python3 -m music2midi_tpu_torch.train
+     --config <recipe> --max_steps 4`` from an initialisation (step ms of
+     steps 3-4 from its log, its peak RSS), ``evaluate``'s ``main`` with
+     ``--config <recipe>`` of the model of record in bf16 (kernels 1 and
+     3 launched), and ``tools.realmix_check`` of the model of record in
+     bf16 on a 21-s ``fullmix`` song (``n_notes``, ``overlap``; its exit
+     code is its verdict);
+  17. the ``kernels`` JSON line.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The subprocesses are ``nvcc``, ``g++`` (the C++ DSP library),
-``nvidia-smi``, ``ffmpeg`` (where present), data prep's ``python3 -m``
-stages, CLI and tools, and the parallel phase's torchrun groups, each
-waited for; data prep's loader spawns its
-worker processes once, the pool shut down when its epoch ends.  The threads are the
-entry-point phase's (the HTTP server, its request threads, the upload
+``nvidia-smi``, ``ffmpeg`` (where present), data prep's and configs'
+``python3 -m`` stages, CLIs and tools, configs' loader process, and the
+parallel phase's torchrun groups, each waited for; data prep's loader
+spawns its worker processes once, the pool shut down when its epoch
+ends.  The threads are the entry-point phase's (the HTTP server, its request threads, the upload
 clients, the batcher's dispatcher and loader pool, ``generate_batch``'s
 prefetch pool), each joined or shut down before the phase ends.
 """
@@ -412,17 +426,253 @@ PREP_STAGES = ("synthesize_corpus", "align_audio_midi", "midi_to_numpy",
 def run_module(module: str, argv: list, cwd: Path) -> tuple:
     """``python3 -m music2midi_tpu_torch.<module> argv`` in `cwd`; raises
     unless it exits 0.  -> (stdout, stderr, seconds)."""
+    return run_python(["-m", f"music2midi_tpu_torch.{module}", *argv],
+                      cwd)[:3]
+
+
+def rss_mib(pid="self") -> float:
+    """A process's resident set now (``VmRSS``), in MiB.  Peaks are the
+    largest of such samples: the card's machine gives no ``VmHWM``, and a
+    child's ``ru_maxrss`` keeps its forking parent's peak."""
+    with open(f"/proc/{pid}/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024
+    raise RuntimeError(f"no VmRSS in /proc/{pid}/status")
+
+
+def run_python(argv: list, cwd: Path, codes=(0,)) -> tuple:
+    """``python3 argv`` in `cwd`, killed after 600 s; raises unless its exit
+    code is one of `codes`.  -> (stdout, stderr, seconds, its peak RSS in
+    MiB, of samples every 0.1 s while it ran, its exit code)."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        filter(None, [str(ROOT), os.environ.get("PYTHONPATH")]))}
+    peak = 0.0
+    with tempfile.TemporaryFile("w+") as fo, \
+            tempfile.TemporaryFile("w+") as fe:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, *argv], cwd=cwd, stdout=fo,
+                                stderr=fe, text=True, env=env)
+        try:
+            while proc.poll() is None:
+                require(time.perf_counter() - t0 < 600,
+                        f"{argv} ran past 600 s")
+                try:
+                    peak = max(peak, rss_mib(proc.pid))
+                except (OSError, RuntimeError):
+                    pass  # it exited between poll and read
+                time.sleep(0.1)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        secs = time.perf_counter() - t0
+        fo.seek(0)
+        fe.seek(0)
+        out, err = fo.read(), fe.read()
+    require(proc.returncode in codes,
+            f"{argv} exited {proc.returncode}:\n{out[-3000:]}\n"
+            f"{err[-3000:]}")
+    return out, err, secs, peak, proc.returncode
+
+
+RECIPE = ROOT / "configs" / "synth16k_aug_r5.yaml"  # the recipe of record
+# configs: a corpus prepared under the recipe, whose train split fills
+# one batch of its 16 (20 songs: 16 train, 2 val, 2 test); the train CLI's
+# steps, logged in pairs; the loader's windows in its own process; the
+# fullmix song of realmix_check
+CFG_SONGS, CFG_SONG_S, CFG_STEPS, CFG_WINDOWS = 20, 24.0, 4, 128
+MIX_SONG_S = 21.0
+
+
+def loader_worker(recipe: str, root: Path, out: Path) -> None:
+    """The recipe's loader over `root`'s train split in a process of its
+    own (``python3 chip_smoke.py --loader-worker RECIPE ROOT OUT``): its
+    workers, batch and caches as the recipe sets them, CFG_WINDOWS
+    windows; writes windows/s, the augment cache's size and the
+    process's peak RSS (sampled every 20 ms) to OUT as JSON."""
+    import threading
+
+    sys.path.insert(0, str(ROOT))
+    from music2midi_tpu_torch import native
+    from music2midi_tpu_torch.config import load_config
+    from music2midi_tpu_torch.data import DataLoader, Music2MIDIDataset
+
+    cfg = load_config(recipe)
+    dataset = Music2MIDIDataset(root, split_ids(root, "train_id"), cfg)
+    rss = [rss_mib()]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.02):
+            rss.append(rss_mib())
+
+    sampler = threading.Thread(target=sample)
+    sampler.start()
+    loader = DataLoader(dataset, batch_size=int(cfg.dataloader.batch_size),
+                        num_workers=int(cfg.dataloader.num_workers),
+                        shuffle=True, seed=0)
+    epochs, n, first = [], 0, None  # epochs: (windows, seconds)
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", f"music2midi_tpu_torch.{module}", *argv],
-        cwd=cwd, capture_output=True, text=True, timeout=600,
-        env={**os.environ, "PYTHONPATH": os.pathsep.join(
-            filter(None, [str(ROOT), os.environ.get("PYTHONPATH")]))})
-    secs = time.perf_counter() - t0
-    require(proc.returncode == 0,
-            f"{module} {argv} exited {proc.returncode}:\n"
-            f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    return proc.stdout, proc.stderr, secs
+    while n < CFG_WINDOWS:
+        te, ne = time.perf_counter(), n
+        for batch in loader:
+            if first is None:
+                first = time.perf_counter() - t0
+            n += len(batch.waveform)
+        epochs.append((n - ne, time.perf_counter() - te))
+    total = time.perf_counter() - t0
+    done.set()
+    sampler.join()
+    rss.append(rss_mib())
+    out.write_text(json.dumps({
+        "windows": n, "seconds": total, "windows_per_s": n / total,
+        "first_batch_s": first, "epochs": len(epochs),
+        "last_epoch_windows_per_s": epochs[-1][0] / epochs[-1][1],
+        "threads": not loader.use_processes, "native": native.available(),
+        "cache_entries": len(dataset._aug_cache),
+        "cache_mib": dataset._aug_cache_bytes / 2**20,
+        "cache_cap_mib": dataset._aug_cache_cap / 2**20,
+        "rss_after_dataset_mib": rss[0], "peak_rss_mib": max(rss)}))
+
+
+def configs_phase(smi: str, launches_of, work: Path) -> str:
+    """The training recipe of record (``configs/synth16k_aug_r5.yaml``,
+    YAML) through every CLI that takes it, with the port alone; see the
+    module docstring, item 16.  -> the phase's info; raises on any
+    failure."""
+    import numpy as np
+
+    from music2midi_tpu_torch import evaluate
+    from music2midi_tpu_torch.config import load_config
+
+    recipe, name = str(RECIPE), RECIPE.name
+    cfg = load_config(recipe)
+    leaves = (cfg.dataset.sample_rate, cfg.dataset.augment,
+              cfg.dataset.cache_augment_mb, cfg.spectrogram.f_min,
+              cfg.dataloader.batch_size)
+    require([type(x).__name__ for x in leaves]
+            == ["int", "bool", "int", "float", "int"]
+            and cfg.dataset.sample_rate == 16000,
+            f"the recipe's leaves: {leaves}")
+    root, lines, stage_s = work / "corpus", [], {}
+    for stage in PREP_STAGES:
+        argv = [str(root)]
+        if stage == "synthesize_corpus":
+            argv += ["--songs", str(CFG_SONGS), "--duration",
+                     str(CFG_SONG_S), "--profile", "clean"]
+        if stage != "midi_to_numpy":  # the one stage without --config
+            argv += ["--config", recipe]
+        out, _, stage_s[stage] = run_module(f"data.{stage}", argv, work)
+    split_line = out.strip().splitlines()[-1]
+    train, test = split_ids(root, "train_id"), split_ids(root, "test_id")
+    batch = int(cfg.dataloader.batch_size)
+    require(len(train) >= batch and test,
+            f"split under the recipe: {split_line} (batch {batch})")
+    lines.append(
+        f"prep under {name} (s, each a python3 -m subprocess): "
+        f"{ {k: round(v, 3) for k, v in stage_s.items()} }; "
+        f"{CFG_SONGS} songs x {CFG_SONG_S:.0f} s (clean): {split_line} "
+        f"(train {len(train)}, val {len(split_ids(root, 'val_id'))}, "
+        f"test {len(test)}) [{smi}]")
+
+    # the recipe's loader in a process of its own: its peak RSS is the
+    # loader's (cache_augment_mb is a cap, not an allocation)
+    _, _, loader_s, _, _ = run_python(
+        [str(ROOT / "chip_smoke.py"), "--loader-worker", recipe,
+         str(root), str(work / "loader.json")], work)
+    ld = json.loads((work / "loader.json").read_text())
+    require(ld["threads"] and ld["native"] and ld["windows"] >= CFG_WINDOWS,
+            f"the recipe's loader: {ld}")
+    require(ld["peak_rss_mib"] < 0.25 * ld["cache_cap_mib"],
+            f"the loader's peak RSS {ld['peak_rss_mib']:.1f} MiB nears "
+            f"the {ld['cache_cap_mib']:.0f}-MiB cap: {ld}")
+    lines.append(
+        f"loader ({name}: batch {batch}, {cfg.dataloader.num_workers} "
+        f"thread workers, augment on, cache_audio on, cache_augment_mb "
+        f"{cfg.dataset.cache_augment_mb}): {ld['windows']} windows in "
+        f"{ld['epochs']} epochs, windows_per_s={ld['windows_per_s']:.2f} "
+        f"(first batch {ld['first_batch_s']:.3f} s, last epoch "
+        f"{ld['last_epoch_windows_per_s']:.2f}); augment cache "
+        f"{ld['cache_entries']} windows, {ld['cache_mib']:.2f} MiB; peak "
+        f"RSS {ld['peak_rss_mib']:.1f} MiB ({ld['rss_after_dataset_mib']:.1f}"
+        f" after the dataset's build); process {loader_s:.3f} s [{smi}]")
+
+    # the train CLI under the recipe, from an initialisation, as given
+    out, err, train_s, train_rss, _ = run_python([
+        "-m", "music2midi_tpu_torch.train", str(root), "--config",
+        recipe, "--max_steps", str(CFG_STEPS),
+        "--steps_per_dispatch", "2", "--out_dir", str(work / "runs"),
+        "--name", "r5", "--device", CARD], work)
+    records = [json.loads(x) for x in (work / "runs" / "r5" / "log.jsonl")
+               .read_text().splitlines()]
+    steps = [r for r in records if "train/loss" in r]
+    require([r["step"] for r in steps] == [2, CFG_STEPS]
+            and all(np.isfinite(r["train/loss"]) for r in steps)
+            and any("val/loss" in r for r in records)
+            and records[-1].get("done"),
+            f"train CLI under the recipe: {records}")
+    require("spawn process workers" not in err,
+            f"the train CLI's loader spawned processes: {err[-2000:]}")
+    step_ms = (steps[1]["time"] - steps[0]["time"]) / (CFG_STEPS - 2) * 1e3
+    lines.append(
+        f"train CLI ({name}, --max_steps {CFG_STEPS}, fp32 from an "
+        f"initialisation, batch {batch}, thread workers): {train_s:.3f} s "
+        f"with process start, validation and checkpoint; step_ms="
+        f"{step_ms:.1f} (steps 3-4, loader included, by the log's clock); "
+        f"train/loss {[r['train/loss'] for r in steps]}; peak RSS "
+        f"{train_rss:.1f} MiB [{smi}]")
+
+    # evaluate --config <the recipe> of the model of record, bf16, counted
+    old_cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        (res, n), eval_s = timed_s(lambda: launches_of(lambda: evaluate.main(
+            [str(root), "--ckpt", str(RECORD), "--config",
+             recipe, "--dtype", "bfloat16", "--name", "r5",
+             "--device", CARD])))
+    finally:
+        os.chdir(old_cwd)
+    require(n["log_mel_spectrogram_cuda"] > 0
+            and n["decode_attention_int8"] > 0,
+            f"evaluate --config: kernels 1 and 3 not launched: {n}")
+    with open(work / res["csv"]) as f:
+        rows = [r.split(",") for r in f.read().splitlines()[1:]]
+    require([r[0] for r in rows] == test
+            and all(0.0 <= float(r[4]) <= 1.0 for r in rows),
+            f"evaluate --config rows {rows}")
+    lines.append(
+        f"evaluate --config {name} (bf16, model of record, test split of "
+        f"{len(test)}): {eval_s:.3f} s, mean_score={res['mean_score']:.6f}, "
+        f"chunks_at_cap={res['chunks_at_cap']} of {res['chunks']}, "
+        f"launches={n} [{smi}]")
+
+    # realmix_check of the model of record, bf16, on a rendered fullmix song
+    run_module("data.synthesize_corpus", [
+        str(work / "mix"), "--songs", "1", "--duration", str(MIX_SONG_S),
+        "--profile", "fullmix", "--seed", "7"], work)
+    song = work / "mix" / "audio" / "synth000.wav"
+    # its exit code is its verdict (1: a floor missed on this song), and
+    # anything else a failure
+    out, _, mix_s, _, code = run_python([
+        "-m", "music2midi_tpu_torch.tools.realmix_check", str(RECORD),
+        "--audio", str(song), "--dtype", "bfloat16", "--device", CARD], work,
+        codes=(0, 1))
+    verdict = out.strip().splitlines()[-1]
+    require(verdict.startswith(("PASS " if code == 0 else "FAIL ")
+                               + f"{RECORD}: n_notes="),
+            f"realmix_check exited {code}: {out[-2000:]}")
+    fields = dict(kv.split("=", 1) for kv in
+                  verdict.split(": ", 1)[1].split(" ")[:2])
+    lines.append(
+        f"realmix_check (bf16, model of record, a {MIX_SONG_S:.0f}-s "
+        f"fullmix song, seed 7): n_notes={fields['n_notes']} "
+        f"overlap={fields['overlap']} ({verdict.split(':')[0].split()[0]}; "
+        f"floors n_notes >= 30, overlap >= 1); {mix_s:.3f} s with process "
+        f"start [{smi}]")
+    for line in lines:
+        print(f"  {line}", flush=True)
+    return f"{len(lines)} checks [{smi}]"
 
 
 def training_config():
@@ -2327,6 +2577,9 @@ def main() -> int:
         ph.info = parallel_phase(smi, engine, song, corpus, path, Path(td))
     prep_dir.cleanup()
 
+    with Phase("configs") as ph, tempfile.TemporaryDirectory() as td:
+        ph.info = configs_phase(smi, launches_of, Path(td))
+
     with Phase("kernels"):
         print(json.dumps({"kernels": [
             mel_entries["log_mel_fft"], mel_entries["log_mel_dft"],
@@ -2340,5 +2593,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-worker"]:
         parallel_worker(sys.argv[2], Path(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--loader-worker"]:
+        loader_worker(sys.argv[2], Path(sys.argv[3]), Path(sys.argv[4]))
         sys.exit(0)
     sys.exit(main())

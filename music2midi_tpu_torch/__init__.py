@@ -5,7 +5,8 @@ Song -> MIDI piano cover on an NVIDIA Hopper card.  The JAX package
 tests; this package imports nothing of it, nor JAX, nor yaml.
 
 Layering follows the JAX package:
-  config        — config tree (defaults as a dict) and resolve_config
+  config        — one YAML tree shared by every layer (read and written
+                  by yaml_subset, the YAML subset the configs use)
   weights       — npz checkpoint loader, JAX param tree -> state_dict
   ops           — log-mel (plain + CUDA kernel), device detokenizer
   models        — T5 encoder-decoder, quantized decode step, checkpoint
@@ -23,3 +24,5 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
+
+from .config import ConfigNode, default_config, load_config, resolve_config  # noqa: F401

@@ -34,8 +34,8 @@ step count instead (what the loop ran).  Both are null where the peak is
 unknown (a CPU, or a card outside ``profiling.PEAK_FLOPS_BF16``).
 
 ``--device cpu`` runs the same code on the CPU (the tests do, at a tiny
-size); a CPU number is no card metric.  ``--config`` takes the JSON of an
-npz ``__config__`` (the card's machine has no yaml).  A checkpoint
+size); a CPU number is no card metric.  ``--config`` takes a YAML or
+JSON config, as ``evaluate``'s does.  A checkpoint
 directory is read as one of the port's trainer (``from_checkpoint``); an
 orbax directory is not readable here.
 """
@@ -79,8 +79,8 @@ def parse_args(argv=None):
              "the random mode always forces DECODE_TOKENS=256")
     p.add_argument(
         "--config", type=str, default=None,
-        help="JSON config for --ckpt (an npz embeds its own; a .ckpt "
-             "embeds none, so the packaged default is used)")
+        help="YAML or JSON config for --ckpt (an npz embeds its own; a "
+             ".ckpt embeds none, so the repository's config.yaml is used)")
     p.add_argument(
         "--int8_weights", action="store_true",
         help="int8 weight-only quantization of the decode projections")

@@ -1,71 +1,24 @@
 """Configuration tree of the port.
 
-A copy of ``music2midi_tpu/config.py``'s ``ConfigNode`` (a small
-attribute-dict, OmegaConf-style) with the defaults of the repository's
-``config.yaml`` kept as a Python dict, so that nothing here needs yaml:
-a checkpoint's own config arrives as JSON inside the npz, and callers may
-pass a mapping or a node.
+A copy of ``music2midi_tpu/config.py``: one YAML tree is the source of
+truth for every layer, held in ``ConfigNode`` (a small attribute-dict,
+OmegaConf-style).  The files are read and written by ``yaml_subset.py``,
+since the card's machine has no yaml: ``load_config`` gives the tree
+``yaml.safe_load`` gives for the repository's configs (``config.yaml``,
+``configs/*.yaml``) and for JSON files, such as an npz's ``__config__``,
+and raises ValueError, with the file and line, on YAML outside that
+subset; ``save_config`` writes the bytes ``yaml.safe_dump(tree,
+sort_keys=False)`` writes.  ``default_config()`` reads the repository's
+``config.yaml``.
 """
 
 from __future__ import annotations
 
 import copy
-import json
 from pathlib import Path
 from typing import Any, Iterator, Mapping, Union
 
-# the defaults of config.yaml at the repository root
-DEFAULT_CONFIG: dict = {
-    "dataset": {
-        "sample_rate": 22050,
-        "dtw_feature_rate": 50,
-        "segment_duration": 3,
-        "max_notes_per_second": 30,
-        "filter_threshold": {
-            "wp_std": 5,
-            "max_beat_fluctuation": 1.2,
-            "max_note_density": 25,
-            "time_diff_ratio": 0.2,
-        },
-    },
-    "spectrogram": {"n_fft": 2048, "hop_length": 256, "f_min": 20.0},
-    "model": {
-        "sample_rate": 16000,
-        "t5": {
-            "num_layers": 6,
-            "num_decoder_layers": 6,
-            "d_model": 384,
-            "d_ff": 1152,
-            "feed_forward_proj": "gated-gelu",
-            "tie_word_embeddings": False,
-            "tie_encoder_decoder": False,
-            "vocab_size": 400,
-            "n_positions": 1024,
-            "relative_attention_num_buckets": 32,
-            "pad_token_id": 0,
-            "bos_token_id": 1,
-            "eos_token_id": 2,
-            "decoder_start_token_id": 1,
-        },
-    },
-    "tokenizer": {
-        "midi_quantize_ms": 50,
-        "vocab_size": {"special": 5, "pitch": 128, "time": 200},
-        "default_velocity": 80,
-    },
-    "trainer": {
-        "max_epochs": 800,
-        "accumulate_grad_batches": 1,
-        "log_every_n_steps": 40,
-    },
-    "dataloader": {"batch_size": 16, "num_workers": 4},
-    "inference": {"batch_size": 128},
-    "conditioning": {
-        "genre": ["electronic", "pop", "rock", "soundtrack", "world_music",
-                  "classical"],
-        "difficulty": ["beginner", "intermediate", "advanced"],
-    },
-}
+from . import yaml_subset
 
 
 class ConfigNode(Mapping):
@@ -162,35 +115,37 @@ def _unwrap(value: Any) -> Any:
     return value
 
 
+def load_config(path: Union[str, Path]) -> ConfigNode:
+    """Load a YAML (or JSON) config file into a ConfigNode."""
+    text = Path(path).read_text()
+    try:
+        data = yaml_subset.load(text)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+    return ConfigNode(data or {})
+
+
+def save_config(config: ConfigNode, path: Union[str, Path]) -> None:
+    Path(path).write_text(yaml_subset.dump(_unwrap(config),
+                                           sort_keys=False))
+
+
+def default_config_path() -> Path:
+    """The config.yaml that ships at the repo root."""
+    return Path(__file__).resolve().parent.parent / "config.yaml"
+
+
 def default_config() -> ConfigNode:
-    return ConfigNode(copy.deepcopy(DEFAULT_CONFIG))
+    return load_config(default_config_path())
 
 
-def resolve_config(config: Union[ConfigNode, Mapping, None]) -> ConfigNode:
-    """Accept a mapping, an existing node, or None (-> defaults).  A YAML
-    path is not accepted: load it outside the port and pass the mapping."""
+def resolve_config(config: Union[str, Path, ConfigNode, Mapping, None]
+                   ) -> ConfigNode:
+    """Accept a path, a mapping, an existing node, or None (-> defaults)."""
     if config is None:
         return default_config()
     if isinstance(config, ConfigNode):
         return config
     if isinstance(config, Mapping):
         return ConfigNode(config)
-    raise TypeError(
-        f"config must be a mapping, a ConfigNode or None, got {type(config)}"
-    )
-
-
-def read_json_config(path) -> dict:
-    """A CLI's ``--config`` file -> its mapping.  The port reads JSON, such
-    as an npz's ``__config__``, and no yaml."""
-    if Path(path).suffix in (".yaml", ".yml"):
-        raise SystemExit(f"--config {path}: pass the config as JSON (the "
-                         "port reads no yaml)")
-    return json.loads(Path(path).read_text())
-
-
-def load_json_config(path) -> ConfigNode:
-    """A CLI's ``--config`` file -> its node (None -> the defaults)."""
-    if path is None:
-        return default_config()
-    return ConfigNode(read_json_config(path))
+    return load_config(config)

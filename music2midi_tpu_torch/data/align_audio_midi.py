@@ -1,7 +1,7 @@
 """Prep stage 2: align each song's MIDI to its audio via chroma+onset DTW.
 
 ``python3 -m music2midi_tpu_torch.data.align_audio_midi DATA_DIR
-[--config CFG.json --workers 4]``: the port of the repository's
+[--config CFG.yaml --workers 4]``: the port of the repository's
 ``data/align_audio_midi.py``, writing the same files.
 
 Reference: data/align_audio_midi.py — synthesize the MIDI, find the optimal
@@ -20,7 +20,7 @@ from pathlib import Path
 import numpy as np
 
 from ..audio import load, normalize
-from ..config import load_json_config
+from ..config import resolve_config
 from ..midi import MidiFile
 from .align import align_features
 from .metadata import dump_metadata, read_metadata
@@ -82,14 +82,15 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("data_dir", type=str)
     parser.add_argument("--config", type=str, default=None,
-                        help="config as JSON (default: config.yaml's values)")
+                        help="config file, YAML or JSON (default: the "
+                             "repository's config.yaml)")
     parser.add_argument("--workers", type=int, default=4)
     args = parser.parse_args(argv)
     data_dir = Path(args.data_dir)
     for sub in ("midi_transposed", "midi_aligned", "warp_path",
                 "beat_times_aligned"):
         (data_dir / sub).mkdir(exist_ok=True)
-    config = load_json_config(args.config)
+    config = resolve_config(args.config)
     feature_rate = int(config.dataset.dtw_feature_rate)
     metas = sorted(data_dir.glob("metadata/*.yaml"))
     with ThreadPoolExecutor(max_workers=args.workers) as pool:

@@ -1,7 +1,8 @@
 """Prep stage 4: per-song alignment-quality metrics -> metadata YAML +
 metrics.csv.
 
-``python3 -m music2midi_tpu_torch.data.compute_metrics DATA_DIR``: the port
+``python3 -m music2midi_tpu_torch.data.compute_metrics DATA_DIR
+[--config CFG.yaml]``: the port
 of the repository's ``data/compute_metrics.py``, writing the same files;
 ``metrics.csv`` goes to the working directory, as there, and is written
 with the ``csv`` module as ``pandas.DataFrame.to_csv(index=False)`` writes
@@ -23,6 +24,7 @@ from pathlib import Path
 import numpy as np
 
 from ..midi import MidiFile
+from ..config import resolve_config
 from .metadata import dump_metadata, read_metadata
 
 COLUMNS = ["piano_id", "opt_chroma_shift", "wp_std", "max_beat_fluctuation",
@@ -118,9 +120,11 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("data_dir", type=str)
     parser.add_argument("--config", type=str, default=None,
-                        help="config as JSON (accepted, as the root stage "
-                             "takes one; no value of it is read)")
+                        help="config file, YAML or JSON (loaded, as every "
+                             "stage loads it; no value of it is read here, "
+                             "as in the root stage)")
     args = parser.parse_args(argv)
+    resolve_config(args.config)
     data_dir = Path(args.data_dir)
     rows = []
     for meta_path in sorted(data_dir.glob("metadata/*.yaml")):

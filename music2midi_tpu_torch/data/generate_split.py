@@ -2,7 +2,7 @@
 train/val/test split.
 
 ``python3 -m music2midi_tpu_torch.data.generate_split DATA_DIR
-[--config CFG.json]``: the port of the repository's
+[--config CFG.yaml]``: the port of the repository's
 ``data/generate_split.py``, writing the same ``dataset_split.npz`` with no
 pandas and no sklearn.
 
@@ -19,7 +19,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..config import load_json_config
+from ..config import resolve_config
 from .metadata import read_metadata
 
 
@@ -41,10 +41,11 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("data_dir", type=str)
     parser.add_argument("--config", type=str, default=None,
-                        help="config as JSON (default: config.yaml's values)")
+                        help="config file, YAML or JSON (default: the "
+                             "repository's config.yaml)")
     args = parser.parse_args(argv)
     data_dir = Path(args.data_dir)
-    config = load_json_config(args.config)
+    config = resolve_config(args.config)
     threshold = config.dataset.filter_threshold
 
     metas = []

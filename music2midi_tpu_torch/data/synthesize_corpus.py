@@ -3,7 +3,8 @@
 ``python3 -m music2midi_tpu_torch.data.synthesize_corpus DATA_DIR
 [--songs 20 --duration 40 --seed 0 --profile clean|hard|piano|fullmix]``:
 the port of the repository's ``data/synthesize_corpus.py``, writing the
-same bytes for the same arguments (``--config`` takes JSON).
+same bytes for the same arguments (``--config`` takes a YAML or JSON
+config, as every CLI of the port does).
 
 The reference's data source is YouTube piano covers (reference
 data/download_youtube.py) — unusable in an offline environment and
@@ -43,7 +44,7 @@ from pathlib import Path
 import numpy as np
 
 from ..audio import write_wav
-from ..config import load_json_config
+from ..config import resolve_config
 from ..midi import Instrument, MidiFile, Note
 from .metadata import dump_metadata
 
@@ -541,7 +542,8 @@ def main(argv=None) -> None:
                         help="approx seconds per song")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--config", type=str, default=None,
-                        help="config as JSON (default: config.yaml's values)")
+                        help="config file, YAML or JSON (default: the "
+                             "repository's config.yaml)")
     parser.add_argument("--noise", type=float, default=0.003,
                         help="additive noise RMS in the rendered audio "
                              "(clean profile)")
@@ -563,7 +565,7 @@ def main(argv=None) -> None:
     )
     args = parser.parse_args(argv)
 
-    cfg = load_json_config(args.config)
+    cfg = resolve_config(args.config)
     genres = list(cfg.conditioning.genre)
     difficulties = list(cfg.conditioning.difficulty)
 

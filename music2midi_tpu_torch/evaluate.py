@@ -2,17 +2,20 @@
 of a prepared corpus, written to ``scores/score-{name}.csv``.
 
     python3 -m music2midi_tpu_torch.evaluate DATA_DIR [--ckpt CKPT]
-        [--config CFG.json] [--name NAME] [--dtype float32|bfloat16]
+        [--config CFG.yaml] [--name NAME] [--dtype float32|bfloat16]
         [--device cuda]
 
 The port of the repository's root ``evaluate.py``: the same flags plus
 ``--device`` (default ``cuda``), the same CSV columns and rows (written
 with the standard ``csv`` module), the same per-song lines.  ``DATA_DIR``
 holds ``dataset_split.npz``, ``audio/{id}.wav``, ``midi_numpy/{id}.npy``
-and ``metadata/{id}.yaml`` (read by ``data/metadata.py::read_metadata``;
-the port reads no other YAML).  ``--config`` takes JSON, such as an npz's
-``__config__``; ``./config.yaml`` is never read.  After the mean score it
-prints the chunks that decoded to the token cap (``last_decode_stats``).
+and ``metadata/{id}.yaml`` (read by ``data/metadata.py::read_metadata``).
+``--config`` takes a YAML config, such as ``configs/synth16k_aug_r5.yaml``,
+or JSON, such as an npz's ``__config__`` (``config.load_config``); without
+it the checkpoint's own config is used, else the repository's
+``config.yaml`` (a ``config.yaml`` in the working directory is not read).
+After the mean score it prints the chunks that decoded to the token cap
+(``last_decode_stats``).
 
 ``--ckpt`` takes an npz export, the reference's Lightning ``.ckpt`` (or a
 ``.pt`` state dict), or a training directory of the port
@@ -30,21 +33,22 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .config import read_json_config
+from . import config as config_lib
 
 #: the committed trained artifact; the CLIs fall back to it when neither
 #: --ckpt nor --config is given
 RECORD_CKPT = (Path(__file__).resolve().parent.parent / "checkpoints"
                / "model_of_record.npz")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-CONFIG_HELP = ("config as JSON, e.g. an npz's __config__ (the port reads "
-               "no yaml and never reads ./config.yaml; default: the "
-               "checkpoint's own, else the packaged default)")
+CONFIG_HELP = ("config file, YAML or JSON (e.g. configs/synth16k_aug_r5.yaml "
+               "or an npz's __config__); default: the checkpoint's own, "
+               "else the repository's config.yaml")
 
 
 def load_config(path):
-    """A JSON config file -> its mapping (None -> None)."""
-    return None if path is None else read_json_config(path)
+    """A ``--config`` file (YAML or JSON) -> its ConfigNode (None -> None:
+    the checkpoint's own config, else the repository's defaults)."""
+    return None if path is None else config_lib.load_config(path)
 
 
 def load_engine(ckpt, config_path, dtype: str = "float32", device=None,

@@ -14,10 +14,11 @@ attaches when it is installed), and ``--eval_in_train``'s chroma score
 of the training batch at each log step (reference model.py:40-42).
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and never falls
-back to the CPU.  ``--config`` takes JSON (the port reads no yaml; an
-npz's ``__config__`` is such a file), default the packaged
-``config.yaml`` values.  ``--init_from`` warm-starts the parameters from
-any checkpoint ``weights.py::restore_params`` reads (the model
+back to the CPU.  ``--config`` takes a YAML config, such as the training
+recipes ``configs/synth16k_aug_r5.yaml`` and its siblings, or JSON, such
+as an npz's ``__config__`` (``config.load_config``); default the
+repository's ``config.yaml``.  ``--init_from`` warm-starts the parameters
+from any checkpoint ``weights.py::restore_params`` reads (the model
 of record's npz among them), floating leaves cast to float32 masters;
 ``--ckpt`` resumes the whole training state.
 
@@ -43,7 +44,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..config import load_json_config
+from ..config import resolve_config
 from ..data import DataLoader, Music2MIDIDataset
 from ..evaluation import evaluate_batch as chroma
 from ..infer.decode import DecodeConfig, generate_tokens
@@ -82,7 +83,8 @@ def parse_args(argv=None):
         help="name of the run",
     )
     parser.add_argument("--config", type=str, default=None,
-                        help="config as JSON (default: config.yaml's values)")
+                        help="config file, YAML or JSON (default: the "
+                             "repository's config.yaml)")
     parser.add_argument(
         "--ckpt", type=str, default=None,
         help="checkpoint dir to resume training",
@@ -191,7 +193,7 @@ def main(argv=None) -> None:
 
 
 def _main(args) -> None:
-    config = load_json_config(args.config)
+    config = resolve_config(args.config)
     mesh, device, rank = _mesh(args, int(config.dataloader.batch_size))
     data_dir = Path(args.data_dir)
     split = np.load(data_dir / "dataset_split.npz", allow_pickle=True)

@@ -1,5 +1,5 @@
 """Web UI of the port: ``python3 -m music2midi_tpu_torch.webui [--ckpt
-CKPT] [--config CFG.json] [--port 5736] [--device cuda] [--warmup]``.
+CKPT] [--config CFG.yaml] [--port 5736] [--device cuda] [--warmup]``.
 
 The port of the repository's root ``webui.py`` (standard-library HTTP):
 GET / serves the submission form; POST /generate accepts a YouTube URL or

@@ -159,11 +159,17 @@ def test_run_workload_and_result_line_have_bench_py_keys(engine,
 
 
 def test_config_must_be_json(tmp_path):
-    """The bench's --config goes through the CLIs' ``load_config``."""
+    """The bench's --config goes through the CLIs' ``load_config``, which
+    reads JSON and, as the JAX CLIs do, the repository's YAML."""
     from music2midi_tpu_torch.evaluate import load_config
 
-    with pytest.raises(SystemExit, match="JSON"):
-        load_config(str(tmp_path / "config.yaml"))
+    assert load_config(None) is None
     path = tmp_path / "config.json"
     path.write_text('{"inference": {"batch_size": 4}}')
     assert load_config(str(path)) == {"inference": {"batch_size": 4}}
+    path = tmp_path / "config.yaml"
+    path.write_text("inference:\n  batch_size: 4  # a comment\n")
+    assert load_config(str(path)) == {"inference": {"batch_size": 4}}
+    path.write_text("inference: &a\n  batch_size: 4\n")
+    with pytest.raises(ValueError, match="config.yaml: line 1"):
+        load_config(str(path))

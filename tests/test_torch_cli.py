@@ -17,10 +17,19 @@ Bars (fp32): the CSV rows equal, the columns ``piano_id``, ``model``,
 equal) and the JSON line has the root's keys; ``load_engine`` dispatches
 on the suffix, honours an npz's embedded config unless ``--config`` is
 given, and falls back to the model of record, else random weights.
+
+``--config configs/synth16k_aug_r5.yaml``, one case per CLI of the port:
+the CLI runs as ``python3 -m`` runs it until it has loaded the file, and
+so does its root twin; the trees they load are equal, leaf types
+included, and the objects each package builds from its tree (the
+``t5_config_from`` and ``log_mel_config_from`` configs, the dataloader's
+batch and workers, the conditioning lists, the dataset section) are
+equal.  Nothing is trained or decoded.
 """
 
 import csv
 import json
+import runpy
 import sys
 from pathlib import Path
 
@@ -30,12 +39,18 @@ import torch
 
 import chip_smoke
 import evaluate as root_evaluate
+import music2midi_tpu.config as jax_config
 from music2midi_tpu.infer import Music2MIDI as JaxMusic2MIDI
+from music2midi_tpu.models.t5 import t5_config_from as jax_t5_config_from
+from music2midi_tpu.ops.mel import log_mel_config_from as jax_mel_config_from
 from music2midi_tpu.train.checkpoint import save_params_npz
+import music2midi_tpu_torch.config as port_config
 from music2midi_tpu_torch import evaluate, serve_batch
 from music2midi_tpu_torch.audio import write_wav
 from music2midi_tpu_torch.config import default_config
 from music2midi_tpu_torch.infer import Music2MIDI
+from music2midi_tpu_torch.models.t5 import t5_config_from
+from music2midi_tpu_torch.ops.mel import log_mel_config_from
 
 RECORD = Path(__file__).resolve().parent.parent / "checkpoints" \
     / "model_of_record.npz"
@@ -169,9 +184,12 @@ def test_load_engine_dispatch(small_npz, tmp_path, monkeypatch, capsys):
                                "bfloat16", "cpu")
     assert int(eng.config.inference.batch_size) == 8
     assert eng.t5_config.dtype == torch.bfloat16
-    with pytest.raises(SystemExit, match="JSON"):
-        evaluate.load_engine(str(small_npz), str(tmp_path / "c.yaml"),
-                             device="cpu")
+    # a YAML --config (the repository's form) overrides the embedded one
+    cfg["inference"]["batch_size"] = 4
+    port_config.save_config(cfg, tmp_path / "c.yaml")
+    eng = evaluate.load_engine(str(small_npz), str(tmp_path / "c.yaml"),
+                               device="cpu")
+    assert int(eng.config.inference.batch_size) == 4
 
     calls = []
     for name in ("from_torch_checkpoint", "from_checkpoint"):
@@ -205,3 +223,100 @@ def test_load_engine_defaults_to_model_of_record(monkeypatch, tmp_path,
     assert int(eng.config.model.t5.num_layers) == 6  # config.yaml unread
     emb = eng.model.state_dict()["shared_embedding"].float()
     assert float(emb.abs().max()) > 1.0  # trained, not an init
+
+
+RECIPE = Path(__file__).resolve().parent.parent / "configs" \
+    / "synth16k_aug_r5.yaml"
+
+
+class _Loaded(Exception):
+    """Raised by the spy once a CLI has loaded its config."""
+
+
+def _loaded_config(monkeypatch, module, path: str, run):
+    """Run `run` with `module.load_config` spied on until it loads `path`;
+    -> the tree it loaded."""
+    real, seen = module.load_config, []
+
+    def spy(p):
+        node = real(p)
+        if str(p) == path:
+            seen.append(node)
+            raise _Loaded
+        return node
+
+    monkeypatch.setattr(module, "load_config", spy)
+    with pytest.raises(_Loaded):
+        run()
+    monkeypatch.setattr(module, "load_config", real)
+    return seen[0].to_dict()
+
+
+def _typed(tree):
+    if isinstance(tree, dict):
+        return {k: _typed(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_typed(v) for v in tree]
+    return (type(tree).__name__, tree)
+
+
+def _built(tree, t5_from, mel_from) -> dict:
+    """What a CLI builds from its config tree, comparable across the two
+    packages (the dtype field is each framework's own object)."""
+    node = port_config.ConfigNode(tree)
+    t5 = t5_from(node)._asdict()
+    t5.pop("dtype")
+    return {"t5": _typed(t5), "mel": _typed(mel_from(node)._asdict()),
+            "dataloader": (int(node.dataloader.batch_size),
+                           int(node.dataloader.num_workers)),
+            "conditioning": _typed(node.conditioning.to_dict()),
+            "dataset": _typed(node.dataset.to_dict())}
+
+
+CLI_ARGV = {  # the port's module -> (the root twin's script, argv)
+    "train": ("train.py", ["{corpus}", "--out_dir", "{tmp}", "--device",
+                           "cpu"]),
+    "evaluate": ("evaluate.py", ["{corpus}"]),
+    "serve_batch": ("serve_batch.py", ["{tmp}/out", "{corpus}/audio/s00.wav"]),
+    "webui": ("webui.py", []),
+    "bench": ("bench.py", ["--ckpt", "{record}"]),
+    "data.synthesize_corpus": ("data/synthesize_corpus.py", ["{tmp}/syn"]),
+    "data.align_audio_midi": ("data/align_audio_midi.py", ["{tmp}/corpus"]),
+    "data.compute_metrics": ("data/compute_metrics.py", ["{tmp}/corpus"]),
+    "data.generate_split": ("data/generate_split.py", ["{tmp}/corpus"]),
+}
+
+
+@pytest.mark.parametrize("module", list(CLI_ARGV))
+def test_cli_config_is_the_jax_clis(module, corpus, tmp_path, monkeypatch):
+    script, argv = CLI_ARGV[module]
+    argv = [a.format(corpus=corpus, tmp=tmp_path, record=RECORD)
+            for a in argv] + ["--config", str(RECIPE)]
+    (tmp_path / "corpus" / "metadata").mkdir(parents=True)
+    monkeypatch.chdir(tmp_path)
+    root = Path(__file__).resolve().parent.parent
+
+    def run_port():
+        monkeypatch.setattr(sys, "argv", [module] + argv + (
+            ["--device", "cpu"] if module in (
+                "evaluate", "serve_batch", "webui", "bench") else []))
+        runpy.run_module(f"music2midi_tpu_torch.{module}",
+                         run_name="__main__")
+
+    def run_root():
+        monkeypatch.setattr(sys, "argv", [script] + argv)
+        runpy.run_path(str(root / script), run_name="__main__")
+
+    got = _loaded_config(monkeypatch, port_config, str(RECIPE), run_port)
+    want_tree = jax_config.load_config(RECIPE).to_dict()
+    assert _typed(got) == _typed(want_tree)
+    if module == "data.compute_metrics":
+        # the root stage takes --config and reads no value of it
+        assert "load_config" not in (root / script).read_text()
+    else:
+        want_tree = _loaded_config(monkeypatch, jax_config, str(RECIPE),
+                                   run_root)
+    assert got["dataset"]["sample_rate"] == 16000
+    want = _built(want_tree, jax_t5_config_from, jax_mel_config_from)
+    assert _built(got, t5_config_from, log_mel_config_from) == want
+    assert want["dataloader"] == (16, 4)

@@ -22,7 +22,9 @@ Checks:
     two short songs, the data-prep chain (``data.synthesize_corpus``,
     ``align_audio_midi``, ``midi_to_numpy``, ``compute_metrics``,
     ``generate_split``) on 4 songs of 12 s, and ``tools.calibration_check
-    --device cpu`` on the model of record;
+    --device cpu`` on the model of record; and loads the training recipe
+    ``configs/synth16k_aug_r5.yaml`` through ``config.load_config`` (the
+    tree the JAX package reads with yaml);
   * serving (the engine, the bench, ``serve``, ``webui``, ``serve_batch``
     and ``evaluate``'s ``load_engine``) imports no training module.
 """
@@ -33,9 +35,12 @@ import subprocess
 import sys
 from pathlib import Path
 
+import yaml
+
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "music2midi_tpu_torch"
 RECORD = ROOT / "checkpoints" / "model_of_record.npz"
+RECIPE = ROOT / "configs" / "synth16k_aug_r5.yaml"
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "yaml",
            "omegaconf", "transformers", "pandas", "sklearn",
            "music2midi_tpu")
@@ -45,9 +50,10 @@ PREP = ("native.py", "data/metadata.py", "data/align.py",
         "data/align_audio_midi.py", "data/midi_to_numpy.py",
         "data/compute_metrics.py", "data/generate_split.py",
         "tools/calibration_check.py", "tools/export_npz.py",
-        "tools/average_checkpoints.py")
+        "tools/average_checkpoints.py", "tools/make_timbre_eval.py",
+        "tools/realmix_check.py", "yaml_subset.py", "config.py")
 # optional tools the card's machine lacks: imported inside functions only
-LAZY = ("matplotlib", "yt_dlp", "fluidsynth")
+LAZY = ("matplotlib", "yt_dlp", "fluidsynth", "pygame")
 
 
 def _port_files():
@@ -94,12 +100,14 @@ def test_port_sources_import_no_blocked_package():
     lazy = {(p.name, root) for p in files
             for root, _, in_fn in _imported_roots(p) if root in LAZY}
     assert {("plot_midi.py", "matplotlib"), ("webui_utils.py", "yt_dlp"),
-            ("webui_utils.py", "fluidsynth")} <= lazy
+            ("webui_utils.py", "fluidsynth"),
+            ("realmix_check.py", "pygame")} <= lazy
 
 
 _REHEARSAL = r"""
 import importlib, json, pkgutil, sys, tempfile
 BLOCKED = set(json.loads(sys.argv[1]))
+RECIPE = sys.argv[3]
 
 class _Blocker:
     def find_spec(self, name, path=None, target=None):
@@ -183,17 +191,20 @@ with tempfile.TemporaryDirectory() as td:
     cli["gate"] = run_module("tools.calibration_check",
                              [record, "--device", "cpu"])
 
+from music2midi_tpu_torch.config import load_config
+recipe = load_config(RECIPE).to_dict()
+
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print(json.dumps({"modules": mods, "ok": ok, "detail": detail,
                   "batch_same": notes(batch) == notes(midi),
-                  "cli": cli, "leaked": leaked}))
+                  "cli": cli, "recipe": recipe, "leaked": leaked}))
 """
 
 
 def test_port_runs_with_the_card_machines_packages_only():
     proc = subprocess.run(
         [sys.executable, "-c", _REHEARSAL, json.dumps(BLOCKED + LAZY),
-         str(RECORD)],
+         str(RECORD), str(RECIPE)],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
         env={**os.environ, "OMP_NUM_THREADS": "2"},
     )
@@ -229,6 +240,8 @@ def test_port_runs_with_the_card_machines_packages_only():
                if k != "val_id") == 4
     code, lines = res["cli"]["gate"]
     assert code == 0 and lines[-1].startswith(f"PASS {RECORD}: notes=")
+    assert res["recipe"] == yaml.safe_load(RECIPE.read_text())
+    assert res["recipe"]["dataset"]["sample_rate"] == 16000
 
 
 def test_serving_imports_no_training_module():
