@@ -178,11 +178,23 @@ and exits non-zero, and nothing is caught and passed over:
      3 launched), and ``tools.realmix_check`` of the model of record in
      bf16 on a 21-s ``fullmix`` song (``n_notes``, ``overlap``; its exit
      code is its verdict);
-  17. the ``kernels`` JSON line.
+  17. orbax, the JAX trainer's checkpoints read with the port alone, from
+     ``tests/data/orbax_small`` (written by the JAX package, random
+     weights, d_model 16): the zstd decoder (``csrc/zstd_decode.cpp``)
+     built with this machine's ``g++``; the ``save_params`` export, the
+     training root and its step dir read bit-equal to their npz twin;
+     ``Music2MIDI.from_orbax`` in bf16 on the card generates the
+     calibration fixture, kernels 1 and 3 launched, its tokens and notes
+     equal ``from_npz``'s of the twin; ``restore_train_state`` of the JAX
+     run (``MultiSteps`` mid-cycle) takes 2 fp32 steps on the card, the
+     losses within ``ORBAX_LOSS_BAR`` relative of the JAX steps' stored
+     losses; the decoder's MB/s on this host;
+  18. the ``kernels`` JSON line.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-The subprocesses are ``nvcc``, ``g++`` (the C++ DSP library),
+The subprocesses are ``nvcc``, ``g++`` (the C++ DSP library and the zstd
+decoder),
 ``nvidia-smi``, ``ffmpeg`` (where present), data prep's and configs'
 ``python3 -m`` stages, CLIs and tools, configs' loader process, and the
 parallel phase's torchrun groups, each waited for; data prep's loader
@@ -2119,6 +2131,144 @@ def parallel_phase(smi: str, engine, song, corpus: Path, fixture_path: str,
     return " | ".join(x.split(":")[0] for x in lines) + f" [{smi}]"
 
 
+ORBAX_FIXTURE = ROOT / "tests" / "data" / "orbax_small"
+ORBAX_LOSS_BAR = 1e-4  # the training phase's card-vs-CPU loss bar
+ZSTD_REPEATS = 20  # passes over the fixture's chunks to time the decoder
+
+
+def orbax_phase(smi: str, launches_of, fixture_path: str) -> str:
+    """The JAX trainer's orbax checkpoints on the card; see the module
+    docstring, item 17.  -> the phase's info; raises on any failure."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from music2midi_tpu_torch import orbax, zstd
+    from music2midi_tpu_torch.audio import load as load_audio
+    from music2midi_tpu_torch.infer import Music2MIDI
+    from music2midi_tpu_torch.models.t5 import t5_config_from
+    from music2midi_tpu_torch.ops.mel import log_mel_config_from
+    from music2midi_tpu_torch.train.adafactor import MultiSteps
+    from music2midi_tpu_torch.train.checkpoint import restore_train_state
+    from music2midi_tpu_torch.train.loop import (
+        Batch,
+        TrainState,
+        make_optimizer,
+        make_train_step,
+        pad_labels,
+        trainable_model,
+    )
+    from music2midi_tpu_torch.weights import load_npz, restore_params
+
+    fix = ORBAX_FIXTURE
+    expected = json.loads((fix / "expected.json").read_text())
+    lines = []
+
+    # the decoder, built here with this machine's g++
+    lib = zstd.library_path()
+    found = lib.is_file()
+    (_, build_s) = timed_s(zstd.get_lib)
+    require(lib.is_file(), f"zstd decoder not built at {lib}")
+    lines.append(f"zstd decoder: {lib.name} "
+                 f"{'found built' if found else 'built with g++'} in "
+                 f"{build_s:.3f} s (compiler output: "
+                 f"{zstd.build_log().strip() or 'none'})")
+
+    # both layouts, bit for bit against the npz twin
+    twin, twin_cfg = load_npz(fix / "params.npz")
+    for layout in ("export", "run", "run/step_00000003"):
+        sd, cfg = restore_params(fix / layout)
+        require(cfg is not None and cfg.to_dict() == twin_cfg.to_dict(),
+                f"{layout}: config differs from the npz twin's")
+        require(set(sd) == set(twin), f"{layout}: parameter names differ")
+        for k, v in twin.items():
+            require(sd[k].dtype == v.dtype and torch.equal(sd[k], v),
+                    f"{layout}: {k} differs from the npz twin")
+    lines.append(f"layouts export, run, run/step_00000003: {len(twin)} "
+                 f"parameters bit-equal to the npz twin")
+
+    # from_orbax in bf16 on the card, the calibration chunk
+    engine = Music2MIDI.from_orbax(fix / "export", dtype=torch.bfloat16,
+                                   device=CARD)
+    twin_engine = Music2MIDI.from_npz(fix / "params.npz",
+                                      dtype=torch.bfloat16, device=CARD)
+    require(engine.device.type == CARD, "engine not on the card")
+    midi, n = launches_of(lambda: engine.generate(audio_path=fixture_path))
+    require(n["log_mel_spectrogram_cuda"] > 0,
+            "from_orbax: the mel kernel was not launched")
+    require(n["decode_attention_int8"] > 0,
+            "from_orbax: the int8 decode-attention kernel was not launched")
+    wave, _ = load_audio(fixture_path, int(engine.config.model.sample_rate))
+    toks = [e.sample_tokens_batched(e._chunk_waveform(wave))
+            for e in (engine, twin_engine)]
+    require(len(toks[0]) == len(toks[1]) and all(
+        np.array_equal(a, b) for a, b in zip(*toks)),
+        "from_orbax tokens differ from from_npz's on the twin")
+    twin_midi = twin_engine.generate(audio_path=fixture_path)
+    notes = [[(x.start, x.end, x.pitch) for i in m.instruments
+              for x in i.notes] for m in (midi, twin_midi)]
+    require(notes[0] == notes[1], "from_orbax notes differ from from_npz's")
+    lines.append(
+        f"from_orbax(export, bf16) on the calibration fixture: "
+        f"{len(toks[0])} chunks, {sum(len(t) for t in toks[0])} tokens equal "
+        f"from_npz(twin)'s, {len(notes[0])} "
+        f"notes (random weights), launches={n}")
+
+    # the JAX run resumed on the card: 2 steps against JAX's losses
+    sd, config = restore_params(fix / "run")
+    cfg = t5_config_from(config)._replace(dropout_rate=0.0)
+    mel_cfg = log_mel_config_from(config)
+    model = trainable_model(sd, cfg, CARD)
+    opt = make_optimizer(model, lr=expected["lr"], warmup_init=False)
+    state = TrainState(model, MultiSteps(opt, expected["every_k"]))
+    state, _ = restore_train_state(fix / "run", state)
+    require(state.step == expected["saved_step"]
+            and state.optimizer.mini_step == 1,
+            f"restored step {state.step}, mini_step "
+            f"{state.optimizer.mini_step}")
+    rng = np.random.default_rng(expected["seed"])
+    w = (rng.normal(size=(expected["batch"], int(
+        expected["seconds"] * mel_cfg.sample_rate))) * 0.1).astype(np.float32)
+    require(hashlib.sha256(w.tobytes()).hexdigest()
+            == expected["wave_sha256"], "the fixture's batch differs here")
+    batch = Batch(w, pad_labels([np.array(x) for x in expected["labels"]]),
+                  np.array(expected["cond"]))
+    step = make_train_step(cfg, mel_cfg)
+    losses = []
+    for _ in expected["losses_after_restore"]:
+        state, loss = step(state, batch, 0)
+        losses.append(float(loss))
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(losses, expected["losses_after_restore"]))
+    require(rel <= ORBAX_LOSS_BAR, f"resumed losses {losses} vs JAX's "
+            f"{expected['losses_after_restore']}")
+    lines.append(f"restore_train_state(run) at step {expected['saved_step']}"
+                 f" (MultiSteps mid-cycle), 2 fp32 steps on the card: losses "
+                 f"{losses} vs JAX {expected['losses_after_restore']}, max "
+                 f"rel {rel:.3e} (bar {ORBAX_LOSS_BAR})")
+
+    # the decoder's rate on this host: every zarr chunk of the run's state
+    kv = orbax.open_kvstore(fix / "run" / "step_00000003" / "state")
+    chunks = [kv[k] for k in kv if not k.endswith(b".zarray")]
+    frames = [c for c in chunks if c[:4] == b"\x28\xb5\x2f\xfd"]
+    out_bytes = sum(len(zstd.decompress(c)) for c in frames)
+    t0 = time.perf_counter()
+    for _ in range(ZSTD_REPEATS):
+        for c in frames:
+            zstd.decompress(c)
+    dt = time.perf_counter() - t0
+    lines.append(f"zstd decode on this host: {len(frames)} zarr chunks, "
+                 f"{out_bytes} bytes out x {ZSTD_REPEATS} in {dt:.4f} s = "
+                 f"{out_bytes * ZSTD_REPEATS / dt / 1e6:.1f} MB/s (host "
+                 f"clock, one thread)")
+    for line in lines:
+        print(f"  {line}", flush=True)
+    return (f"{len(lines)} checks; launches kernel 1 "
+            f"{n['log_mel_spectrogram_cuda']}, kernel 3 "
+            f"{n['decode_attention_int8']} [{smi}]")
+
+
 def _wrappers() -> list:
     from music2midi_tpu_torch.ops import decode_attention as da
     from music2midi_tpu_torch.ops import mel_cuda
@@ -2579,6 +2729,11 @@ def main() -> int:
 
     with Phase("configs") as ph, tempfile.TemporaryDirectory() as td:
         ph.info = configs_phase(smi, launches_of, Path(td))
+
+    with Phase("orbax") as ph, tempfile.TemporaryDirectory() as td:
+        path = str(Path(td) / "a4_22050.wav")
+        write_wav(path, fixture, fixture_sr)
+        ph.info = orbax_phase(smi, launches_of, path)
 
     with Phase("kernels"):
         print(json.dumps({"kernels": [

@@ -36,8 +36,8 @@ unknown (a CPU, or a card outside ``profiling.PEAK_FLOPS_BF16``).
 ``--device cpu`` runs the same code on the CPU (the tests do, at a tiny
 size); a CPU number is no card metric.  ``--config`` takes a YAML or
 JSON config, as ``evaluate``'s does.  A checkpoint
-directory is read as one of the port's trainer (``from_checkpoint``); an
-orbax directory is not readable here.
+directory of either package's trainer, the JAX trainer's orbax
+directories included, is read by ``from_checkpoint``.
 """
 
 from __future__ import annotations

@@ -18,8 +18,9 @@ After the mean score it prints the chunks that decoded to the token cap
 (``last_decode_stats``).
 
 ``--ckpt`` takes an npz export, the reference's Lightning ``.ckpt`` (or a
-``.pt`` state dict), or a training directory of the port
-(``Music2MIDI.from_checkpoint``).  With neither ``--ckpt`` nor
+``.pt`` state dict), or a checkpoint directory of either package's
+trainer: an export, a step dir or a training root, the JAX trainer's
+orbax directories included (``Music2MIDI.from_checkpoint``).  With neither ``--ckpt`` nor
 ``--config`` it loads the model of record; with ``--config`` alone, random
 weights.
 """

@@ -50,10 +50,11 @@ engine is collected.  The staging buffers are the engine's, so two
 stream), as two decodes of one bucket do (``infer/decode.py``).
 Checkpoints: the npz export
 (``from_npz``) and the reference's Lightning ``.ckpt``
-(``from_torch_checkpoint``), and the port's own training checkpoints and
-exports (``from_checkpoint``, through ``weights.py::restore_params``); an
-orbax directory needs orbax, which the port does not use (``from_orbax``
-raises).
+(``from_torch_checkpoint``), and the training checkpoints and exports of
+either package (``from_orbax``, with the JAX engine's signature, and
+``from_checkpoint``, both through ``weights.py::restore_params``): the
+JAX trainer's orbax directories are read by the port's own OCDBT / zarr
+reader and zstd decoder (``orbax.py``), with no orbax or tensorstore.
 """
 
 from __future__ import annotations
@@ -286,24 +287,21 @@ class Music2MIDI:
                         **kw) -> "Music2MIDI":
         """Load anything ``weights.py::restore_params`` reads: an
         npz export (from either package), a ``save_params`` directory, or
-        a training checkpoint of the port (a step directory, or a training
-        root taking its latest step); the port's counterpart of the JAX
-        engine's ``from_orbax``."""
+        a training checkpoint (a step directory, or a training root taking
+        its latest step), of either package's trainer."""
         params, saved_cfg = restore_params(path)
         return cls(params, config if config is not None else saved_cfg, **kw)
 
     @classmethod
-    def from_orbax(cls, ckpt_dir: Union[str, Path], *args,
+    def from_orbax(cls, ckpt_dir: Union[str, Path],
+                   config: Optional[Union[ConfigNode, dict]] = None,
                    **kw) -> "Music2MIDI":
-        """An orbax checkpoint directory: not readable here.  It needs
-        orbax, which the port does not use; export the weights with
-        ``tools/export_npz.py`` and load them with ``from_npz``, or load a
-        checkpoint of the port's trainer with ``from_checkpoint``."""
-        raise NotImplementedError(
-            f"{ckpt_dir}: orbax checkpoint directories need orbax, which the "
-            "PyTorch port does not use; export an npz (tools/export_npz.py) "
-            "and load it with Music2MIDI.from_npz, or load a checkpoint of "
-            "the port's trainer with Music2MIDI.from_checkpoint")
+        """The JAX engine's ``from_orbax``: the params of a JAX run's
+        orbax directory (a ``save_params`` export, a training step dir or
+        a training root taking its latest step), or of any other layout
+        ``restore_params`` reads; the saved config unless ``config``."""
+        params, saved_cfg = restore_params(ckpt_dir)
+        return cls(params, config if config is not None else saved_cfg, **kw)
 
     @classmethod
     def from_random(cls, config: Optional[Union[ConfigNode, dict]] = None,

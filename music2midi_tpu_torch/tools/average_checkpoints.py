@@ -6,8 +6,9 @@ inference export.
 
 The port of the repository's ``tools/average_checkpoints.py``.  Each SRC
 is anything ``restore_params`` accepts: an npz from either package, a
-``save_params`` export (SRC/params.pt), a training checkpoint root (its
-latest step_N taken), or a step_N dir.  The output is a ``save_params``
+``save_params`` export (SRC/params.pt, or the JAX package's orbax
+SRC/params/), a training checkpoint root of either package (its latest
+step_N taken), or a step_N dir.  The output is a ``save_params``
 export, loadable by ``evaluate --ckpt OUT_DIR`` and
 ``Music2MIDI.from_checkpoint``.
 """

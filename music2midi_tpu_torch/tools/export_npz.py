@@ -5,7 +5,9 @@
 
 The port of the repository's ``tools/export_npz.py``.  Each SRC is
 anything ``restore_params`` accepts (an npz from either package, a
-``save_params`` export, a training checkpoint root or step dir).  With
+``save_params`` export, a training checkpoint root or step dir, the JAX
+trainer's orbax directories among them, so a JAX run becomes an npz with
+no JAX).  With
 several sources the params are averaged (``average_params``) first.  The
 output is the single-file checkpoint-of-record format, loadable by either
 package's ``Music2MIDI.from_npz`` and by ``evaluate --ckpt OUT.npz``.

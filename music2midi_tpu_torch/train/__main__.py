@@ -19,8 +19,10 @@ recipes ``configs/synth16k_aug_r5.yaml`` and its siblings, or JSON, such
 as an npz's ``__config__`` (``config.load_config``); default the
 repository's ``config.yaml``.  ``--init_from`` warm-starts the parameters
 from any checkpoint ``weights.py::restore_params`` reads (the model
-of record's npz among them), floating leaves cast to float32 masters;
-``--ckpt`` resumes the whole training state.
+of record's npz and a JAX run's orbax directories among them), floating
+leaves cast to float32 masters; ``--ckpt`` resumes the whole training
+state, of the port's trainer or of the JAX trainer (a step dir or a
+training root of either; ``train/checkpoint.py``).
 
 Several ranks: ``python3 -m torch.distributed.run --nproc_per_node N -m
 music2midi_tpu_torch.train DATA_DIR --tp T`` (``M2M_DIST_BACKEND=gloo``
@@ -87,7 +89,8 @@ def parse_args(argv=None):
                              "repository's config.yaml)")
     parser.add_argument(
         "--ckpt", type=str, default=None,
-        help="checkpoint dir to resume training",
+        help="checkpoint dir to resume training (a step dir or a "
+             "training root of the port's or the JAX trainer)",
     )
     parser.add_argument(
         "--init_from", type=str, default=None,

@@ -3,11 +3,18 @@
 Port of ``music2midi_tpu/train/checkpoint.py``.  The layout of a training
 checkpoint is the JAX package's (``ckpt_dir/step_{N:08d}/`` with the
 config as ``config.json`` beside the state, the last ``keep`` steps
-kept), but the state itself is one ``state.pt`` written by ``torch.save``
-(orbax is not used by the port): the parameters as a CPU state_dict, the
-optimizer's ``state_dict`` and the step, all of it loadable with
-``torch.load(weights_only=True)``.  ``save_params`` writes
+kept), but the state the port writes is one ``state.pt`` written by
+``torch.save`` (the port writes no orbax): the parameters as a CPU
+state_dict, the optimizer's ``state_dict`` and the step, all of it
+loadable with ``torch.load(weights_only=True)``.  ``save_params`` writes
 ``ckpt_dir/params.pt`` (+ ``config.json``).
+
+``restore_train_state`` also resumes a run of the JAX trainer: a step dir
+holding its orbax ``state/`` (read by ``orbax.py``, with no orbax) is
+turned into the dict a ``state.pt`` holds.  The ``AdafactorHFState``
+gives every parameter's ``step`` and its ``row`` / ``col`` (a factored
+matrix) or ``v`` moment; under ``optax.MultiSteps`` its ``mini_step`` and
+``acc_grads`` give ``MultiSteps.mini_step`` / ``acc``.
 
 ``save_params_npz`` / ``load_params_npz`` are the JAX package's npz format
 exactly ('/'-joined tree paths with '#i' for list indices, bfloat16 as its
@@ -47,12 +54,16 @@ from ..parallel.mesh import (
     shard_tensor,
     split_dim,
 )
-from .adafactor import _MOMENTS
+from .adafactor import _MOMENTS, MultiSteps
+from .. import orbax
 from ..weights import (
+    JAX_STATE_DIR,
     PARAMS_FILE,
     STATE_FILE,
     StateDict,
+    is_jax_step,
     load_torch,
+    params_from_jax,
     read_config,
     step_dir,
 )
@@ -132,21 +143,105 @@ def _prune_old(ckpt_dir: Path, keep: int) -> None:
         shutil.rmtree(old, ignore_errors=True)
 
 
+def _same_names(got, want, what: str) -> None:
+    """Raise naming the first key that one of the two has and the other
+    lacks."""
+    extra, missing = sorted(set(got) - set(want)), sorted(set(want) - set(got))
+    if extra:
+        raise ValueError(f"{what}.{extra[0]}: not in the port's model")
+    if missing:
+        raise ValueError(f"{what}.{missing[0]}: missing")
+
+
+def _flat(tree, what: str) -> Dict[str, torch.Tensor]:
+    if not isinstance(tree, dict):
+        raise ValueError(f"{what}: not a tree of arrays")
+    return params_from_jax(tree)
+
+
+def _from_jax(tree: dict, state, path: Path) -> dict:
+    """The JAX trainer's TrainState (``read_tree`` of its ``state/``) ->
+    the dict a port ``state.pt`` holds, for the optimizer of ``state``."""
+    for key in ("params", "opt_state", "step"):
+        if key not in tree:
+            raise ValueError(f"{path}: {key} missing from the JAX state")
+    params = _flat(tree["params"], "params")
+    names = _trainable_names(state.model)
+    opt = tree["opt_state"]
+    multi = isinstance(state.optimizer, MultiSteps)
+    if multi != ("inner_opt_state" in opt):
+        raise ValueError(
+            "opt_state.inner_opt_state: missing, but the port's optimizer "
+            "accumulates gradients (MultiSteps)" if multi else
+            "opt_state.inner_opt_state: an optax.MultiSteps state, but the "
+            "port's optimizer does not accumulate gradients")
+    inner = opt["inner_opt_state"] if multi else opt
+    where = "opt_state.inner_opt_state" if multi else "opt_state"
+    if set(inner) != {"step", "moments"}:
+        raise ValueError(f"{where}: not an AdafactorHFState (keys "
+                         f"{sorted(inner)})")
+    step = int(inner["step"])
+    moments = _flat(inner["moments"], f"{where}.moments")
+    per_param, used = {}, set()
+    for i, n in enumerate(names):
+        if n not in params:
+            raise ValueError(f"params.{n}: missing")
+        shape = tuple(params[n].shape)  # whole, as saved; a mesh slices it
+        if f"{n}.row" in moments:
+            want = {"row": shape[:-1], "col": shape[:-2] + shape[-1:]}
+        else:
+            want = {"v": shape}
+        st = {"step": step}
+        for k, s in want.items():
+            key = f"{n}.{k}" if k != "v" else n
+            if key not in moments:
+                raise ValueError(f"{where}.moments.{key}: missing")
+            if tuple(moments[key].shape) != s:
+                raise ValueError(f"{where}.moments.{key}: shape "
+                                 f"{tuple(moments[key].shape)}, the port's "
+                                 f"Adafactor keeps {s}")
+            st[k] = moments[key].float()
+            used.add(key)
+        per_param[i] = st
+    _same_names(moments, used, f"{where}.moments")
+    base = state.optimizer.state_dict()
+    opt_sd = {"state": per_param,
+              "param_groups": (base["inner"] if multi else base)[
+                  "param_groups"]}
+    if multi:
+        mini = int(opt["mini_step"])
+        if not 0 <= mini < state.optimizer.every_k:
+            raise ValueError(f"opt_state.mini_step: {mini}, the port "
+                             f"accumulates {state.optimizer.every_k} steps")
+        if int(opt["gradient_step"]) != step:
+            raise ValueError(f"opt_state.gradient_step: "
+                             f"{int(opt['gradient_step'])}, but the inner "
+                             f"step is {step}")
+        if opt.get("skip_state") not in ((), [], {}, None):
+            raise ValueError("opt_state.skip_state: not empty")
+        acc = _flat(opt["acc_grads"], "opt_state.acc_grads")
+        _same_names(acc, names, "opt_state.acc_grads")
+        opt_sd = {"mini_step": mini,
+                  "acc": [acc[n].float() for n in names], "inner": opt_sd}
+    return {"params": params, "opt_state": opt_sd, "step": int(tree["step"])}
+
+
 def restore_train_state(path: Union[str, Path], state, mesh=None
                         ) -> Tuple[object, Optional[ConfigNode]]:
     """Restore into ``state`` (a TrainState built as the saved one was:
-    the same parameter names and optimizer) from a step dir, or from a
-    training root taking its latest step.  -> (state, config | None).
-    On a ``mesh`` the saved (whole) state is sliced to this rank's
-    shard."""
+    the same parameter names and optimizer) from a step dir of either
+    package's trainer, or from a training root taking its latest step.
+    -> (state, config | None).  On a ``mesh`` the saved (whole) state is
+    sliced to this rank's shard."""
     path = step_dir(Path(path).resolve())
-    saved = load_torch(path / STATE_FILE)
+    if is_jax_step(path):
+        saved = _from_jax(orbax.read_tree(path / JAX_STATE_DIR), state, path)
+    else:
+        saved = load_torch(path / STATE_FILE)
     specs = param_pspecs(saved["params"])
     with torch.no_grad():
         own = state.model.state_dict()
-        if set(own) != set(saved["params"]):
-            raise ValueError(f"{path}: parameter names differ from the "
-                             "model's")
+        _same_names(saved["params"], own, f"{path}: params")
         for k, v in shard_params(saved["params"], mesh).items():
             own[k].copy_(v)
     opt_state = saved["opt_state"]

@@ -14,9 +14,13 @@ paths joined with ``.`` and without the ``#`` (``decoder.layers.0.self_attn.q``)
 which are exactly the parameter names of ``models.t5.T5Model``.  bfloat16
 bits are reinterpreted in torch, with no ``ml_dtypes``.
 
-``restore_params`` reads parameters from any layout the port writes: the
-npz export, a ``save_params`` directory (``params.pt``) or a training
-checkpoint of ``train/checkpoint.py`` (``step_{N:08d}/state.pt``).
+``restore_params`` reads parameters from any layout either package
+writes: the npz export; a ``save_params`` directory (the port's
+``params.pt``, or the JAX package's orbax ``params/``); a training
+checkpoint (a step directory ``step_{N:08d}`` holding the port's
+``state.pt`` or the JAX trainer's orbax ``state/``, or a training root,
+taking its latest step).  The orbax directories are read by ``orbax.py``,
+with no orbax or tensorstore.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from . import orbax
 from .config import ConfigNode
 
 StateDict = Dict[str, torch.Tensor]
@@ -63,7 +68,8 @@ def load_npz(path: Union[str, Path]) -> Tuple[StateDict, Optional[ConfigNode]]:
 
 def params_from_jax(tree) -> StateDict:
     """A JAX parameter tree (nested dicts and lists of numpy or JAX arrays,
-    as ``init_params`` or ``load_params_npz`` give it) -> state_dict.
+    as ``init_params`` or ``load_params_npz`` give it, or of CPU tensors, as
+    ``orbax.read_tree`` gives it) -> state_dict.
 
     The values are carried across bit for bit; bfloat16 stays bfloat16."""
     out: StateDict = {}
@@ -75,6 +81,8 @@ def params_from_jax(tree) -> StateDict:
         elif isinstance(node, (list, tuple)):
             for i, v in enumerate(node):
                 walk(v, path + [i])
+        elif isinstance(node, torch.Tensor):
+            out[_key(path)] = node
         else:
             a = np.asarray(node)
             out[_key(path)] = _to_tensor(a, a.dtype.name)
@@ -109,6 +117,10 @@ def tree_from_state_dict(sd: StateDict) -> dict:
 
 STATE_FILE = "state.pt"  # a training step dir's state (train/checkpoint.py)
 PARAMS_FILE = "params.pt"  # a save_params export
+# the JAX package's layouts (music2midi_tpu/train/checkpoint.py): orbax
+# directories in the same places
+JAX_STATE_DIR = "state"
+JAX_PARAMS_DIR = "params"
 
 
 def load_torch(path: Path) -> dict:
@@ -131,9 +143,15 @@ def latest_checkpoint(ckpt_dir: Union[str, Path]) -> Optional[Path]:
     return steps[-1] if steps else None
 
 
+def is_jax_step(path: Path) -> bool:
+    """A step dir the JAX trainer wrote (an orbax ``state/``)."""
+    return (path / JAX_STATE_DIR).is_dir()
+
+
 def step_dir(path: Path) -> Path:
-    """A step dir, or the latest step of a training root."""
-    if (path / STATE_FILE).exists():
+    """A step dir (either package's), or the latest step of a training
+    root."""
+    if (path / STATE_FILE).exists() or is_jax_step(path):
         return path
     latest = latest_checkpoint(path)
     if latest is None:
@@ -146,13 +164,20 @@ def restore_params(path: Union[str, Path]
     """Params for inference from any layout -> (state_dict, config|None):
       * a ``save_params_npz`` single-file export (*.npz, from either
         package),
-      * a ``save_params`` export (ckpt_dir/params.pt), or
-      * a training checkpoint (a step dir, or a root taking its latest
-        step)."""
+      * a ``save_params`` export (ckpt_dir/params.pt, or the JAX
+        package's orbax ckpt_dir/params/), or
+      * a training checkpoint of either package (a step dir, or a root
+        taking its latest step)."""
     path = Path(path).resolve()
     if path.suffix == ".npz":
         return load_npz(path)
     if (path / PARAMS_FILE).exists():
         return load_torch(path / PARAMS_FILE), read_config(path)
+    if (path / JAX_PARAMS_DIR).is_dir():
+        return (params_from_jax(orbax.read_tree(path / JAX_PARAMS_DIR)),
+                read_config(path))
     path = step_dir(path)
+    if is_jax_step(path):
+        tree = orbax.read_tree(path / JAX_STATE_DIR, under=("params",))
+        return params_from_jax(tree), read_config(path)
     return load_torch(path / STATE_FILE)["params"], read_config(path)

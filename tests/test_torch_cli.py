@@ -201,7 +201,8 @@ def test_load_engine_dispatch(small_npz, tmp_path, monkeypatch, capsys):
     assert calls == [("from_torch_checkpoint", "a.ckpt", None, "cpu"),
                      ("from_torch_checkpoint", "b.pt", None, "cpu"),
                      ("from_checkpoint", "run_dir", None, "cpu")]
-    with pytest.raises(NotImplementedError, match="orbax"):
+    # a directory with no checkpoint: JAX restore_params' error
+    with pytest.raises(FileNotFoundError, match="no checkpoint under"):
         Music2MIDI.from_orbax(tmp_path / "orbax")
 
     # no checkpoint: random weights when a config is given

@@ -41,9 +41,9 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "music2midi_tpu_torch"
 RECORD = ROOT / "checkpoints" / "model_of_record.npz"
 RECIPE = ROOT / "configs" / "synth16k_aug_r5.yaml"
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "yaml",
-           "omegaconf", "transformers", "pandas", "sklearn",
-           "music2midi_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
+           "zstandard", "ml_dtypes", "yaml", "omegaconf", "transformers",
+           "pandas", "sklearn", "music2midi_tpu")
 # the data-prep chain and the checkpoint tools
 PREP = ("native.py", "data/metadata.py", "data/align.py",
         "data/midi_tools.py", "data/synthesize_corpus.py",
@@ -89,7 +89,7 @@ def test_port_sources_import_no_blocked_package():
                  "serve/batcher.py", "serve/webui_utils.py",
                  "plot_midi.py", "plot_interactive.py",
                  "parallel/__init__.py", "parallel/distributed.py",
-                 "parallel/mesh.py", *PREP):
+                 "parallel/mesh.py", "orbax.py", "zstd.py", *PREP):
         assert PKG / name in files
     bad = [
         f"{p.relative_to(ROOT)}:{line} imports {root}"

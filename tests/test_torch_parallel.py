@@ -86,8 +86,9 @@ from test_torch_train import _write_corpus
 
 ROOT = Path(__file__).resolve().parent.parent
 MESHES = [(2, 1), (1, 2), (2, 2)]
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "yaml",
-           "omegaconf", "transformers", "music2midi_tpu", "wandb")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
+           "zstandard", "ml_dtypes", "yaml", "omegaconf", "transformers",
+           "music2midi_tpu", "wandb")
 CHILD_TIMEOUT = 120
 RTOL, ATOL = 1e-5, 1e-7
 _SITECUSTOMIZE = """
