@@ -1,0 +1,2 @@
+"""The port's benchmark: ``python3 -m benchmark.run --workload <cell> ...``
+(README.md)."""
