@@ -1,0 +1,11 @@
+"""Mean self time of the ``forward`` span (the mel and the loss) per
+traced train step (``train/loop.py`` ``make_train_step``), in ms: the
+host's time in it, whether the card is busy or not."""
+
+from benchmark.frozen.spans import part_self_ms, slice_spans
+
+
+def read(ctx):
+    spans = slice_spans(ctx)
+    return None if spans is None else part_self_ms(spans, "train.step",
+                                                   "forward")

@@ -1380,11 +1380,11 @@ def decode_graph_phase(smi: str, launches_of, engine, batch, cond) -> str:
             fn(eng.model, enc64, eng.t5_config, short)
         with tempfile.TemporaryDirectory() as td:
             with profiling.trace(td):
-                with profiling.annotate("decode"):
+                with profiling.span("decode_call"):
                     _, counted = launches_of(lambda: fn(
                         eng.model, enc64, eng.t5_config, short))
             events = profiling.load_trace(td)
-        window = profiling.annotation_window(events, "decode")
+        window = profiling.annotation_window(events, "decode_call")
         launches = profiling.host_launches(events, window)
         ran = profiling.device_kernels(events, kernel_of.values(), window)
         ran = {k: ran[v] for k, v in kernel_of.items()}

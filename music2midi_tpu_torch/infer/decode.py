@@ -39,7 +39,11 @@ eight most recent keys); ``generate_tokens_eager`` is its plain twin, the
 same body over a fresh program's state with nothing captured, which the
 tests and ``chip_smoke.py`` hold the captured program against.  Launch
 counts stay true under replay: a capture records how many launches of
-each kernel wrapper its graph holds, and a replay adds them.
+each kernel wrapper its graph holds, and a replay adds them.  A
+generation is one ``decode`` span (``profiling.span``, recorded while a
+profiler or ``profiling.recording()`` is on) with its ``steps``, its
+``syncs`` (host reads of the device: one ``done`` check a body), its
+graph ``replays`` and the ``captures`` made inside it.
 
 A program's state is one generation's at a time: ``run`` holds the
 program's lock from the prologue to the copy of its output, so that two
@@ -96,6 +100,7 @@ from ..models.t5 import (
     transpose_cross_kv,
 )
 from ..ops import decode_attention as _da
+from ..profiling import span
 
 
 class DecodeConfig(NamedTuple):
@@ -357,25 +362,35 @@ class DecodeProgram:
     def _run(self, model: T5Model, encoder_hidden: torch.Tensor,
              generator: Optional[torch.Generator], capture: bool
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-        self._prologue(model, encoder_hidden, generator)
-        # as the JAX loop's phases: a phase runs while a whole body fits
-        # its prefix, the last one to n_gen
-        steps, finished = 0, False
-        for phase in self.phases:
-            limit = self.n_gen if phase == self.phases[-1] else \
-                min(self.n_gen, phase - self.unroll)
-            while not finished and steps < limit:
-                self._iterate(phase, capture)
-                steps += self.unroll
-                finished = bool(self.done.all())
-        if generator is not None and self.generator is not None:
-            generator.set_state(self.generator.get_state())
-        max_len = self.dcfg.max_length
-        tokens = self.tokens[:, :max_len].clone()
-        eos = tokens == self.cfg.eos_token_id
-        has_eos = eos.any(dim=1)
-        first_eos = eos.to(torch.int8).argmax(dim=1).to(torch.int32)
-        lengths = torch.where(has_eos, first_eos + 1, max_len).to(torch.int32)
+        with span("decode") as sp:
+            self._prologue(model, encoder_hidden, generator)
+            graphs = len(self.graphs)
+            # as the JAX loop's phases: a phase runs while a whole body
+            # fits its prefix, the last one to n_gen; each body ends in
+            # one host read of the device (syncs)
+            steps, syncs, finished = 0, 0, False
+            for phase in self.phases:
+                limit = self.n_gen if phase == self.phases[-1] else \
+                    min(self.n_gen, phase - self.unroll)
+                while not finished and steps < limit:
+                    self._iterate(phase, capture)
+                    steps += self.unroll
+                    finished = bool(self.done.all())
+                    syncs += 1
+            if generator is not None and self.generator is not None:
+                generator.set_state(self.generator.get_state())
+            max_len = self.dcfg.max_length
+            tokens = self.tokens[:, :max_len].clone()
+            eos = tokens == self.cfg.eos_token_id
+            has_eos = eos.any(dim=1)
+            first_eos = eos.to(torch.int8).argmax(dim=1).to(torch.int32)
+            lengths = torch.where(has_eos, first_eos + 1,
+                                  max_len).to(torch.int32)
+            # a body that captures its graph runs eagerly and replays
+            # nothing; every other captured body is one replay
+            captured = len(self.graphs) - graphs
+            sp.set(steps=steps, syncs=syncs, captures=captured,
+                   replays=syncs - captured if capture else 0)
         return tokens, lengths
 
     @property

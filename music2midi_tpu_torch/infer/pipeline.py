@@ -55,6 +55,17 @@ either package (``from_orbax``, with the JAX engine's signature, and
 ``from_checkpoint``, both through ``weights.py::restore_params``): the
 JAX trainer's orbax directories are read by the port's own OCDBT / zarr
 reader and zstd decoder (``orbax.py``), with no orbax or tensorstore.
+
+Spans (``profiling.span``, recorded while a profiler or
+``profiling.recording()`` is on): a ``generate_batch`` call is the root
+(``songs``, ``chunks``); on the calling thread a ``stage`` per batch
+(``k``, ``width``, ``rows``; its ``slot_wait`` the wait for a free
+staging buffer) and the final ``midi``; on the card thread a ``batch``
+(``k``) under the root, with ``upload``, ``mel``, ``encode``, ``decode``
+(``infer/decode.py``: its steps, host syncs, replays and captures),
+``tokens`` (the lengths read back) and ``detokenize``.  ``on_batch_tokens``
+(default None), when set, is called as ``on_batch_tokens(k, tokens)`` with
+each batch's index in the call and the tokens ``_run_batch`` returns.
 """
 
 from __future__ import annotations
@@ -65,7 +76,8 @@ import weakref
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List, NamedTuple, Optional, Sequence, Union
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Union)
 
 import numpy as np
 import torch
@@ -98,6 +110,7 @@ from ..parallel.mesh import (
     local_config,
     shard_params,
 )
+from ..profiling import span
 from ..tokenizer import MidiTokenizer
 from ..utils import numpy_to_midi
 from ..weights import load_npz, restore_params
@@ -237,6 +250,10 @@ class Music2MIDI:
         # RMS of a fixed gaussian dither added to every chunk
         # (_chunk_waveform); 0.0 = off, the JAX engine's default
         self.input_dither: float = 0.0
+        # called as on_batch_tokens(k, tokens) with each batch's index in
+        # its call and the tokens _run_batch returns (None: not called)
+        self.on_batch_tokens: Optional[
+            Callable[[int, torch.Tensor], None]] = None
         # generate_batch's two staging buffers (_staging_slots), one call
         # at a time
         self._slots: Optional[List[_Slot]] = None
@@ -497,9 +514,13 @@ class Music2MIDI:
         the device) + (B, n_cond) conditioning -> (tokens, lengths) on the
         device: log-mel -> conditioning -> encoder -> decode."""
         if isinstance(wave_chunks, np.ndarray):
-            wave_chunks = self._device_wave(wave_chunks)
-        mel = self._log_mel(wave_chunks)
-        return self._decode(self._encoder(mel, cond_index), generator)
+            with span("upload"):
+                wave_chunks = self._device_wave(wave_chunks)
+        with span("mel"):
+            mel = self._log_mel(wave_chunks)
+        with span("encode"):
+            hidden = self._encoder(mel, cond_index)
+        return self._decode(hidden, generator)
 
     # ------------------------------------------------------------------ #
     # inference                                                           #
@@ -575,7 +596,8 @@ class Music2MIDI:
             packed = torch.cat([tokens, lengths[:, None]], dim=1).float()
             packed = gather_tensor(packed, 0, self.mesh, "dp").to(torch.int32)
             tokens, lengths = packed[:, :-1], packed[:, -1]
-        len_h = lengths.cpu().numpy()
+        with span("tokens"):
+            len_h = lengths.cpu().numpy()
         self.last_decode_stats.append({
             "batch_width": int(len(batch)),
             "real_rows": int(n),
@@ -584,7 +606,10 @@ class Music2MIDI:
             "row_steps": (len_h[:n] - 1).tolist(),
             **mesh_stats,
         })
-        return tokens[:n, :int(len_h[:n].max())]
+        tokens = tokens[:n, :int(len_h[:n].max())]
+        if self.on_batch_tokens is not None:
+            self.on_batch_tokens(len(self.last_decode_stats) - 1, tokens)
+        return tokens
 
     def _token_batches(self, chunks: np.ndarray,
                        cond_index: Optional[Sequence[int]] = None):
@@ -701,79 +726,90 @@ class Music2MIDI:
             return self._generate_locked(waves, cond_indices)
 
     def _generate_locked(self, waves, cond_indices) -> List[MidiFile]:
-        max_bs = int(self.config.inference.batch_size)
-        n_cond = self.num_conditioning
-        self.last_decode_stats = []
-        spans: List[tuple] = []
-        rows: List[np.ndarray] = []
-        conds: List[np.ndarray] = []
-        local_idx: List[int] = []
-        pending: list = []
-        card = ThreadPoolExecutor(max_workers=1, thread_name_prefix="m2m-card")
-        try:
-            slots = card.submit(self._staging_slots).result()
+        with span("generate_batch", songs=len(cond_indices)) as root:
+            max_bs = int(self.config.inference.batch_size)
+            n_cond = self.num_conditioning
+            self.last_decode_stats = []
+            spans: List[tuple] = []
+            rows: List[np.ndarray] = []
+            conds: List[np.ndarray] = []
+            local_idx: List[int] = []
+            pending: list = []
+            card = ThreadPoolExecutor(max_workers=1,
+                                      thread_name_prefix="m2m-card")
+            try:
+                slots = card.submit(self._staging_slots).result()
 
-            def dispatch():
-                for f in pending:  # stop staging once a batch has failed
-                    if f.done() and f.exception() is not None:
-                        f.result()
-                n = len(rows)
-                b = self._width(n)
-                slot = slots[len(pending) % len(slots)]
-                slot.free.wait()
-                slot.free.clear()
-                try:
-                    self._stage(slot, rows, b)
-                except BaseException:
-                    slot.free.set()
-                    raise
-                cond = np.zeros((b, n_cond), np.int64)
-                cond[:n] = np.stack(conds)
-                pending.append(card.submit(self._card_batch, slot, b, n, cond,
-                                           list(local_idx), len(pending)))
-                rows.clear()
-                conds.clear()
-                local_idx.clear()
+                def dispatch():
+                    # stop staging once a batch has failed
+                    for f in pending:
+                        if f.done() and f.exception() is not None:
+                            f.result()
+                    n = len(rows)
+                    b = self._width(n)
+                    with span("stage", k=len(pending), width=b, rows=n):
+                        slot = slots[len(pending) % len(slots)]
+                        with span("slot_wait"):
+                            slot.free.wait()
+                        slot.free.clear()
+                        try:
+                            self._stage(slot, rows, b)
+                        except BaseException:
+                            slot.free.set()
+                            raise
+                        cond = np.zeros((b, n_cond), np.int64)
+                        cond[:n] = np.stack(conds)
+                        pending.append(card.submit(
+                            self._card_batch, slot, b, n, cond,
+                            list(local_idx), len(pending), root))
+                    rows.clear()
+                    conds.clear()
+                    local_idx.clear()
 
-            n_total = 0
-            for wave, cond in zip(waves, cond_indices):
-                song_chunks = self._chunk_waveform(wave)
-                c = (np.zeros(n_cond, np.int64) if cond is None
-                     else np.asarray(cond, np.int64))
-                spans.append((n_total, n_total + len(song_chunks)))
-                n_total += len(song_chunks)
-                for k, row in enumerate(song_chunks):
-                    rows.append(row)
-                    conds.append(c)
-                    local_idx.append(k)
-                    if len(rows) == max_bs:
-                        dispatch()
-            if rows:
-                dispatch()
-            per_chunk: List[np.ndarray] = []
-            for f in pending:
-                per_chunk.extend(f.result())
-        finally:
-            card.shutdown(wait=True, cancel_futures=True)
-        out = []
-        for start, end in spans:
-            parts = per_chunk[start:end]
-            out.append(numpy_to_midi(
-                np.concatenate(parts) if parts else np.zeros((0, 4))))
-        return out
+                n_total = 0
+                for wave, cond in zip(waves, cond_indices):
+                    song_chunks = self._chunk_waveform(wave)
+                    c = (np.zeros(n_cond, np.int64) if cond is None
+                         else np.asarray(cond, np.int64))
+                    spans.append((n_total, n_total + len(song_chunks)))
+                    n_total += len(song_chunks)
+                    for k, row in enumerate(song_chunks):
+                        rows.append(row)
+                        conds.append(c)
+                        local_idx.append(k)
+                        if len(rows) == max_bs:
+                            dispatch()
+                if rows:
+                    dispatch()
+                root.set(chunks=n_total)
+                per_chunk: List[np.ndarray] = []
+                for f in pending:
+                    per_chunk.extend(f.result())
+            finally:
+                card.shutdown(wait=True, cancel_futures=True)
+            out = []
+            with span("midi"):
+                for start, end in spans:
+                    parts = per_chunk[start:end]
+                    out.append(numpy_to_midi(np.concatenate(parts) if parts
+                                             else np.zeros((0, 4))))
+            return out
 
     def _card_batch(self, slot: _Slot, b: int, n: int, cond: np.ndarray,
-                    local_idx: List[int], k: int) -> List[np.ndarray]:
+                    local_idx: List[int], k: int, root) -> List[np.ndarray]:
         """On the card thread: upload a staged batch, run it (batch k of
         the call draws from ``_sample_rng(k)``, as in the JAX engine) and
-        copy its per-chunk notes back."""
-        with torch.no_grad():
-            wave = self._upload(slot, b)
+        copy its per-chunk notes back; its span is a child of the call's
+        ``root``."""
+        with torch.no_grad(), span("batch", parent=root, k=k):
+            with span("upload"):
+                wave = self._upload(slot, b)
             tokens = self._run_batch(wave, cond, n, self._sample_rng(k))
-            start_idx = torch.as_tensor(local_idx, device=tokens.device) \
-                * self._n_steps()
-            return detokenize_to_host(tokens, start_idx,
-                                      self.tokenizer.time_step)
+            with span("detokenize"):
+                start_idx = torch.as_tensor(
+                    local_idx, device=tokens.device) * self._n_steps()
+                return detokenize_to_host(tokens, start_idx,
+                                          self.tokenizer.time_step)
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
         """Run each batch width a serving process will use once, on

@@ -1,17 +1,34 @@
-"""Trace helpers over ``torch.profiler``, and analytic model-FLOPs
-accounting (MFU) with the card's bf16 peak.
+"""Spans of the program's own layers, trace helpers over ``torch.profiler``,
+and analytic model-FLOPs accounting (MFU) with the card's bf16 peak.
+
+Spans: ``span(name, **attrs)`` marks a stretch of the program's work
+(the serving call's stages on the calling and the card threads, the
+batcher's requests, collects and dispatches, the train step's parts) with
+its name, start, end, thread, its own id, its parent's (the innermost
+span open on the same thread, or ``parent=``) and integer attributes, the
+counters of the work it did (``Span.set``).  A span records only while a
+``torch.profiler`` is recording, or inside ``recording()``: otherwise
+``span`` costs one flag check and returns a span that records nothing.
+Records are stamped with ``time.time_ns()``, the clock of the profiler's
+host events (Unix-epoch nanoseconds), so a trace's events and the spans
+of the same stretch of time line up; while the profiler records, a span
+also enters ``torch.profiler.record_function`` (recorded on the thread
+that started the profiler), so a Chrome trace shows it beside the
+kernels.  ``spans()`` returns the finished spans, oldest first, as plain
+dicts; the buffer keeps the newest ``SPAN_CAPACITY`` and counts what it
+dropped (``spans_dropped``); ``clear_spans`` empties it.
 
 The trace helpers port ``music2midi_tpu/profiling.py``'s ``trace``,
-``timed``, ``annotate`` and ``summarize_trace`` from ``jax.profiler`` to
-``torch.profiler``: ``trace`` records the host's calls and, on a card,
+``annotate`` (here ``span``) and ``summarize_trace`` from ``jax.profiler``
+to ``torch.profiler``: ``trace`` records the host's calls and, on a card,
 the device's kernels and copies, and writes a Chrome trace into its
 directory; ``summarize_trace`` aggregates the device activity of the
 traces there into the same (total_ms, count, name) rows.  What the decode
 loop's measurement reads besides: ``host_launches`` (the host's kernel
 and graph launches, ``cudaLaunchKernel`` and ``cudaGraphLaunch``, in a
 window) and ``device_idle_share`` (the share of a window in which no
-kernel, copy or set runs on the device), over the window of an
-``annotate`` region (``annotation_window``), ``device_kernels`` (the
+kernel, copy or set runs on the device), over the window of a ``span``
+(``annotation_window``), ``device_kernels`` (the
 kernels of given names the device ran, launched in a window, matched to
 their launch by correlation id), and ``device_clock_past`` (how far the
 device's clock in the trace strays past the host's).  The JAX module's
@@ -32,15 +49,19 @@ by ``torch.cuda.get_device_name``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gzip
+import itertools
 import json
 import os
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 #: Chrome-trace categories of the device's own activity
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -82,30 +103,169 @@ def trace(log_dir: Union[str, Path] = "m2m_trace"
             str(log_dir / f"{os.getpid()}.{time.time_ns()}.trace.json"))
 
 
+#: finished spans the buffer keeps: the newest (a long-running server
+#: traced for hours keeps this many and counts the rest as dropped)
+SPAN_CAPACITY = 16384
+
+
+class SpanLog:
+    """A bounded buffer of finished spans, safe for every thread: it keeps
+    the newest ``capacity`` and counts the older ones it dropped."""
+
+    def __init__(self, capacity: int = SPAN_CAPACITY):
+        self._lock = threading.Lock()
+        self._spans: "collections.deque[Span]" = collections.deque(
+            maxlen=capacity)
+        self.dropped = 0
+
+    def add(self, sp: "Span") -> None:
+        with self._lock:
+            if len(self._spans) == self._spans.maxlen:
+                self.dropped += 1
+            self._spans.append(sp)
+
+    def records(self) -> List["Span"]:
+        with self._lock:
+            return list(self._spans)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._spans.clear()
+            self.dropped = 0
+
+
+_LOG = SpanLog()
+_IDS = itertools.count(1)
+_OPEN = threading.local()  # .stack: ids of the spans open on this thread
+_RECORDING = 0  # recording() blocks open, in every thread
+_RECORDING_LOCK = threading.Lock()
+
+
+def _open_stack() -> List[int]:
+    try:
+        return _OPEN.stack
+    except AttributeError:
+        _OPEN.stack = []
+        return _OPEN.stack
+
+
+class Span:
+    """One recorded stretch of work (see the module docstring); made by
+    ``span``.  As a context manager it is the innermost open span of its
+    thread until it exits; ``end()`` ends one that is not used as a
+    context manager (a request's span, ended when its future resolves)."""
+
+    __slots__ = ("name", "id", "parent", "thread", "t0_ns", "t1_ns",
+                 "attrs", "_annotation")
+
+    def __init__(self, name: str, parent: Optional[int], attrs: dict):
+        self.name = name
+        self.id = next(_IDS)
+        if parent is None:
+            stack = _open_stack()
+            parent = stack[-1] if stack else None
+        self.parent = parent
+        self.thread = threading.current_thread().name
+        self.attrs = attrs
+        self.t1_ns: Optional[int] = None
+        self._annotation = None
+        self.t0_ns = time.time_ns()
+
+    def set(self, **attrs) -> None:
+        """Set attributes (counters) of the span."""
+        self.attrs.update(attrs)
+
+    def end(self) -> None:
+        """Stamp the end and keep the span (once)."""
+        if self.t1_ns is None:
+            self.t1_ns = time.time_ns()
+            _LOG.add(self)
+
+    def __enter__(self) -> "Span":
+        _open_stack().append(self.id)
+        if _autograd_profiler._is_profiler_enabled:
+            self._annotation = torch.profiler.record_function(self.name)
+            self._annotation.__enter__()
+            self.t0_ns = time.time_ns()  # inside its annotation
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        _open_stack().pop()
+        self.end()
+        if self._annotation is not None:
+            self._annotation.__exit__(*exc)
+        return False
+
+
+class _Off:
+    """The span ``span`` returns while nothing records: no-ops."""
+
+    __slots__ = ()
+    id = None
+
+    def set(self, **attrs) -> None:
+        pass
+
+    def end(self) -> None:
+        pass
+
+    def __enter__(self) -> "_Off":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_OFF = _Off()
+
+
+def span(name: str, parent=None, **attrs):
+    """A span of the work in a ``with`` block (or up to ``end()``), with
+    integer attributes ``attrs``; ``parent`` (a span or its id) in place of
+    the innermost span open on this thread.  Records only while a
+    ``torch.profiler`` records or inside ``recording()``; otherwise returns
+    a span that does nothing, at the cost of one flag check:
+
+        with profiling.span("decode") as sp:
+            ...
+            sp.set(steps=steps)
+    """
+    if not (_RECORDING or _autograd_profiler._is_profiler_enabled):
+        return _OFF
+    return Span(name, getattr(parent, "id", parent), attrs)
+
+
 @contextlib.contextmanager
-def timed(label: str, results: Optional[dict] = None) -> Iterator[None]:
-    """Wall-clock timer; stores seconds into ``results[label]`` if given.
-    Where CUDA is in use the device is synchronized at both ends, so that
-    the time is of the work and not of its enqueueing."""
-    sync = torch.cuda.is_available() and torch.cuda.is_initialized()
-    if sync:
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
+def recording() -> Iterator[None]:
+    """Record spans in every thread for the block, with no profiler."""
+    global _RECORDING
+    with _RECORDING_LOCK:
+        _RECORDING += 1
     try:
         yield
     finally:
-        if sync:
-            torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        if results is not None:
-            results[label] = dt
-        print(f"[timed] {label}: {dt * 1000:.1f} ms")
+        with _RECORDING_LOCK:
+            _RECORDING -= 1
 
 
-def annotate(name: str):
-    """Named region for profiler traces (``torch.profiler.record_function``,
-    the counterpart of ``jax.profiler.TraceAnnotation``)."""
-    return torch.profiler.record_function(name)
+def spans() -> List[dict]:
+    """The finished spans kept, oldest first: ``{name, id, parent, thread,
+    t0_ns, t1_ns, attrs}`` (``time.time_ns()`` stamps)."""
+    return [{"name": s.name, "id": s.id, "parent": s.parent,
+             "thread": s.thread, "t0_ns": s.t0_ns, "t1_ns": s.t1_ns,
+             "attrs": dict(s.attrs)}
+            for s in sorted(_LOG.records(), key=lambda s: s.t0_ns)]
+
+
+def spans_dropped() -> int:
+    """Finished spans the bounded buffer dropped, oldest first, since the
+    last ``clear_spans``."""
+    return _LOG.dropped
+
+
+def clear_spans() -> None:
+    """Empty the span buffer (and its count of dropped spans)."""
+    _LOG.clear()
 
 
 def load_trace(log_dir: Union[str, Path]) -> List[dict]:
@@ -148,8 +308,8 @@ def summarize_trace(log_dir: Union[str, Path] = "m2m_trace", top: int = 30,
 
 
 def annotation_window(events: List[dict], name: str) -> Tuple[float, float]:
-    """(start, end) in microseconds of the host's first ``annotate(name)``
-    region."""
+    """(start, end) in microseconds of the host's first ``span(name)``
+    (recorded on the thread that started the trace)."""
     for ev in events:
         if ev.get("cat") == "user_annotation" and ev["name"] == name:
             return float(ev["ts"]), float(ev["ts"]) + float(ev["dur"])

@@ -20,6 +20,13 @@ another).  A cold process builds the CUDA kernels at their first launch,
 on this thread, under ``ops/_build.py``'s lock; ``engine.warmup()`` builds
 them before serving.
 
+Spans (``profiling.span``, recorded while a profiler or
+``profiling.recording()`` is on): a ``request`` from ``submit()`` until its
+future resolves (``request``, the request's id); a ``collect`` from the
+first request taken until the batch is dispatched (``songs``); a
+``dispatch`` over the ``generate_batch`` call (``requests``, the ids it
+serves), the parent of the call's spans.
+
 Usage:
     batcher = DynamicBatcher(engine)          # starts the thread
     midi = batcher.submit(waveform).result()  # or audio_path=...
@@ -28,6 +35,7 @@ Usage:
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -38,11 +46,14 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..profiling import span
+
 
 class _Request:
-    __slots__ = ("waveform", "audio_path", "cond_index", "future")
+    __slots__ = ("id", "waveform", "audio_path", "cond_index", "future")
 
-    def __init__(self, waveform, audio_path, cond_index):
+    def __init__(self, request_id, waveform, audio_path, cond_index):
+        self.id = request_id
         self.waveform = waveform
         self.audio_path = audio_path
         self.cond_index = cond_index
@@ -66,12 +77,14 @@ class DynamicBatcher:
         self.max_batch_songs = max_batch_songs
         self.max_wait_ms = max_wait_ms
         self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue()
+        self._ids = itertools.count()
         self._closed = False
         self._lock = threading.Lock()  # orders submit() vs close(): no
         # request may be enqueued behind the close sentinel
         self._loader = ThreadPoolExecutor(max_workers=4)  # concurrent
         # audio decode for path-based requests
-        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="m2m-batcher")
         self._thread.start()
 
     def submit(
@@ -84,7 +97,10 @@ class DynamicBatcher:
         an audio path (decoded concurrently on a small loader pool)."""
         if (waveform is None) == (audio_path is None):
             raise ValueError("pass exactly one of waveform / audio_path")
-        req = _Request(waveform, audio_path, cond_index)
+        req = _Request(next(self._ids), waveform, audio_path, cond_index)
+        sp = span("request", request=req.id)
+        if sp.id is not None:
+            req.future.add_done_callback(lambda _: sp.end())
         with self._lock:
             if self._closed:
                 raise RuntimeError("batcher is closed")
@@ -105,10 +121,12 @@ class DynamicBatcher:
 
     def _collect(self):
         """Block for the first request, then wait up to max_wait_ms for
-        more (or until the batch is full)."""
+        more (or until the batch is full) -> (the batch, its ``collect``
+        span, open), or None once closed."""
         first = self._queue.get()
         if first is None:
             return None
+        collect = span("collect")
         batch = [first]
         deadline = time.monotonic() + self.max_wait_ms / 1e3
         while len(batch) < self.max_batch_songs:
@@ -123,16 +141,17 @@ class DynamicBatcher:
                 self._queue.put(None)
                 break
             batch.append(req)
-        return batch
+        return batch, collect
 
     def _run(self) -> None:
         from ..audio import load as audio_load
 
         model_sr = int(self.engine.config.model.sample_rate)
         while True:
-            batch = self._collect()
-            if batch is None:
+            collected = self._collect()
+            if collected is None:
                 return
+            batch, collect = collected
             # claim each future; a client that already cancel()ed a
             # pending request is dropped here (set_result on a cancelled
             # future raises InvalidStateError and would kill this thread)
@@ -158,10 +177,13 @@ class DynamicBatcher:
                     live.append(r)
                 except Exception as e:  # noqa: BLE001
                     r.future.set_exception(e)
+            collect.set(songs=len(live))
+            collect.end()
             if not live:
                 continue
             try:
-                with torch.no_grad():
+                with torch.no_grad(), span(
+                        "dispatch", requests=[r.id for r in live]):
                     midis = self.engine.generate_batch(
                         waves, cond_indices=[r.cond_index for r in live]
                     )

@@ -35,6 +35,12 @@ are summed over tp (a tp rank reads only its heads' columns).  Each rank
 draws every dropout mask at its full shape from the step's generator and
 keeps its part (``models/t5.py::MaskShard``), so a sharded step is the
 one-device step.
+
+A step is a ``train.step`` span (``profiling.span``, recorded while a
+profiler or ``profiling.recording()`` is on; ``step``) over ``h2d`` (the
+batch to the device and the dropout generator), ``forward`` (mel and
+loss), ``backward``, under a mesh ``reduce`` (the gradient collectives),
+and ``optimizer``.
 """
 
 from __future__ import annotations
@@ -65,6 +71,7 @@ from ..parallel.mesh import (
     shard_params,
     split_dim,
 )
+from ..profiling import span
 from .adafactor import Adafactor
 
 
@@ -202,17 +209,25 @@ def make_train_step(t5_cfg: T5Config, mel_cfg: LogMelConfig, mesh=None):
 
     def train_step(state: TrainState, batch: Batch,
                    seed: int = 0) -> Tuple[TrainState, torch.Tensor]:
-        dev = _device(state)
-        batch, gen = _local_batch(batch, mesh, cfg, seed, state.step, dev)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss = _loss(state.model, batch, gen, cfg, mel_cfg, False, dp)
-        loss.backward()
-        reduce_gradients(state.model, mesh)
-        state.optimizer.step()
-        state.step += 1
-        loss = loss.detach()
-        if dp is not None:
-            dist.all_reduce(loss, group=dp)
+        with span("train.step", step=state.step):
+            dev = _device(state)
+            with span("h2d"):
+                batch, gen = _local_batch(batch, mesh, cfg, seed, state.step,
+                                          dev)
+            state.optimizer.zero_grad(set_to_none=True)
+            with span("forward"):
+                loss = _loss(state.model, batch, gen, cfg, mel_cfg, False, dp)
+            with span("backward"):
+                loss.backward()
+            if mesh is not None:
+                with span("reduce"):
+                    reduce_gradients(state.model, mesh)
+            with span("optimizer"):
+                state.optimizer.step()
+            state.step += 1
+            loss = loss.detach()
+            if dp is not None:
+                dist.all_reduce(loss, group=dp)
         return state, loss
 
     return train_step

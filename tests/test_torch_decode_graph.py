@@ -379,7 +379,7 @@ def test_trace_helpers_summarize_a_cpu_trace(tmp_path):
     a = torch.from_numpy(np.random.default_rng(0).normal(
         size=(32, 32)).astype(np.float32))
     with profiling.trace(tmp_path) as prof:
-        with profiling.annotate("work"):
+        with profiling.span("work"):
             b = torch.softmax(a @ a, dim=-1)
     assert prof is not None and b.shape == (32, 32)
     events = profiling.load_trace(tmp_path)

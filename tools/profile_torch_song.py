@@ -45,7 +45,7 @@ def main() -> int:
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as td:
         with profiling.trace(td):
-            with profiling.annotate("song"):
+            with profiling.span("song"):
                 t0 = time.perf_counter()
                 engine.generate(audio_y=song)
                 torch.cuda.synchronize()

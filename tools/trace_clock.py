@@ -5,7 +5,7 @@ Decodes a seeded random encoder output (the model of record in bf16, EOS
 suppressed, 128 steps at width 64) under ``profiling.trace`` several
 times, captured and eager, and prints for each run, as one JSON line:
 the kernel-3 launches the wrappers counted, the kernel-3 kernels of the
-trace launched in the host's ``annotate`` window (matched by correlation
+trace launched in the host's ``span`` window (matched by correlation
 id, ``profiling.device_kernels``), those stamped inside the window, and
 the microseconds by which the device's last activity ends past the
 window although the host synchronized inside it
@@ -59,11 +59,11 @@ def main() -> int:
             da.decode_attention_int8.launches = 0
             with tempfile.TemporaryDirectory() as td:
                 with profiling.trace(td):
-                    with profiling.annotate("decode"):
+                    with profiling.span("decode_call"):
                         fn(eng.model, enc, cfg, dcfg)
                         torch.cuda.synchronize()
                 events = profiling.load_trace(td)
-            window = profiling.annotation_window(events, "decode")
+            window = profiling.annotation_window(events, "decode_call")
             stamped = sum(ev.get("cat") == "kernel" and KERNEL in ev["name"]
                           and window[0] <= ev["ts"] < window[1]
                           for ev in events)
