@@ -46,6 +46,18 @@ and exits non-zero, and nothing is caught and passed over:
        at the same causal n and cross L, bar 1e-5 relative to the largest
        output, f32 sdpa beside it; and kernel 3 on the +-7-level entries
        of ``kv_bits=4`` (int8 storage), bar 2e-2 on the bf16 outputs;
+     - the multi-tensor Adafactor kernel (``csrc/adafactor.cu``, no TPU
+       kernel: the JAX package leaves optax's Adafactor to XLA) on the
+       model of record's 146 fp32 leaves with seeded gradients: one step
+       against the plain version on the card from the same state, with a
+       fixed lr of 1e-2 and with the recipe's relative step (moments
+       within ``ADAFACTOR_BARS[0]`` relative, the parameter change within
+       ``ADAFACTOR_BARS[1]`` relative beside an ulp of the parameter, and
+       the elements not equal counted), a second kernel run bit-equal, 4
+       launches a step; a step's device
+       and host-inclusive ms, the plain version's, the bounds (the
+       function's bytes, and the kernel's four passes'), and the host's
+       kernel launches a step of each under ``torch.profiler``;
   4. serving path: ``Music2MIDI.from_npz(model of record, bf16)`` on the
      card, ``generate(audio_path=...)`` on the calibration fixture, the
      pinned ``check_midi`` gate, and the launch counts of this run (the
@@ -105,9 +117,11 @@ and exits non-zero, and nothing is caught and passed over:
      split in bf16, kernels 1 and 3 launched, its mean score and chunks
      at the cap, and a test song's transcription with notes.  The
      training and entry-point phases read this corpus;
-  13. training (``music2midi_tpu_torch.train``, no kernel on its path: the
-     JAX trainer runs outside Pallas, and the counts of all four kernels
-     must stay 0): data prep's train split, its songs in turn (an epoch
+  13. training (``music2midi_tpu_torch.train``: kernel 5, the Adafactor
+     kernel, on its path and no other; each counted run on the card
+     launches kernel 5 exactly 4 times a step and kernels 1-4 never, the
+     fp32 run's count the kernels line's): data prep's train split, its
+     songs in turn (an epoch
      holds 4 batches of 16 random 3-s windows), read through the port's
      dataset and loader with augmentation on (thread workers, the C++
      pitch shift);
@@ -148,8 +162,10 @@ and exits non-zero, and nothing is caught and passed over:
      train CLI for 2 fp32 steps from the model of record, batch 16 (data
      prep's train split repeated to one batch, no loader workers), in 4
      ranks at (dp, tp) = (2, 2) sharing the card over gloo against one
-     process: losses within 1e-4 relative, the gathered checkpoint's
-     parameters within 1e-4 of each element or its leaf's RMS; (b) the
+     process (kernel 5 on every rank, a tp rank's statistics all-reduced
+     between its phases): losses within 1e-4 relative, the gathered
+     checkpoint's parameters within 1e-4 of each element or its leaf's
+     RMS; (b) the
      same ranks serving (this file with ``--parallel-worker serve``):
      ``Music2MIDI(mesh=...)`` in bf16 on the song, kernels 1 and 3
      launched on every rank at B/dp = 32, H/tp = 4, ``"captured":
@@ -231,6 +247,9 @@ N_LAYERS = 6  # decoder layers: timed inputs taken in turn
 # H100 (0.971503, tools/song_agreement.py); tests/test_torch_gpu.py holds
 # the same bar
 C1_BAR = 0.96
+# Adafactor kernel vs plain: moments relative; a step's parameter change
+# relative, beside an ulp of the parameter (the sums run in other orders)
+ADAFACTOR_BARS = (1e-6, 1e-5)
 
 
 def require(ok: bool, what) -> None:
@@ -843,10 +862,11 @@ def data_prep_phase(smi: str, launches_of, root: Path) -> str:
 
 
 def training_phase(smi: str, launches_of, check_midi, fixture_path: str,
-                   root: Path) -> str:
+                   root: Path, adafactor_entry: dict) -> str:
     """The training path on the card, on data_prep's corpus at `root`; see
-    the module docstring, item 13.  -> the phase's info; raises on any
-    failure."""
+    the module docstring, item 13.  Sets ``adafactor_entry["launches"]``
+    (the kernels line's) to the fp32 run's count.  -> the phase's info;
+    raises on any failure."""
     import numpy as np
     import torch
 
@@ -872,6 +892,13 @@ def training_phase(smi: str, launches_of, check_midi, fixture_path: str,
     config = training_config()
     mel_cfg = log_mel_config_from(config)
     lines = []
+
+    def only_adafactor(k: int) -> dict:
+        """The counts of a run that launched kernel 5 k times and no
+        other kernel."""
+        return {w.__name__: k if w.__name__ == "adafactor_kernel" else 0
+                for w in _wrappers()}
+
     with tempfile.TemporaryDirectory() as td:
         # the train split's songs in turn, TRAIN_WINDOWS random windows an
         # epoch: 4 batches of 16
@@ -918,7 +945,10 @@ def training_phase(smi: str, launches_of, check_midi, fixture_path: str,
             cfg, st = state_on(dev, torch.float32, 0.0, lr=1e-2)
             before = torch.cat([p.detach().flatten().double().cpu()
                                 for p in st.model.parameters()])
-            _, l = make_train_step(cfg, mel_cfg)(st, batches[0], 0)
+            (_, l), n = launches_of(
+                lambda: make_train_step(cfg, mel_cfg)(st, batches[0], 0))
+            require(n == only_adafactor(4 if dev == CARD else 0),
+                    f"a {dev} train step launched {n}")
             loss[dev] = float(l)
             update[dev] = torch.cat([p.detach().flatten().double().cpu()
                                      for p in st.model.parameters()]) - before
@@ -950,8 +980,10 @@ def training_phase(smi: str, launches_of, check_midi, fixture_path: str,
                     losses.append(float(l))
 
             _, n = launches_of(run)
-            require(not any(n.values()),
-                    f"{mode} training launched a kernel: {n}")
+            require(n == only_adafactor(4 * (TRAIN_WARMUP + TRAIN_STEPS)),
+                    f"{mode} training launched {n}")
+            if mode == "fp32":
+                adafactor_entry["launches"] = n["adafactor_kernel"]
             require(all(np.isfinite(losses)), f"{mode} losses {losses}")
             timed = times[TRAIN_WARMUP:]
             med = float(np.median(timed))
@@ -1027,7 +1059,7 @@ def training_phase(smi: str, launches_of, check_midi, fixture_path: str,
                 f"CLI log {records}")
         require((out / "smoke" / "ckpt" / "step_00000004" / "state.pt")
                 .exists(), "CLI checkpoint step_00000004 missing")
-        require(not any(n.values()), f"the CLI launched a kernel: {n}")
+        require(n == only_adafactor(4 * 4), f"the CLI launched {n}")
         lines.append(
             f"cli: 4 bf16 steps in {cli_s:.3f} s (loader, validation, "
             f"checkpoints and eval_in_train included): train/loss "
@@ -2269,13 +2301,128 @@ def orbax_phase(smi: str, launches_of, fixture_path: str) -> str:
             f"{n['decode_attention_int8']} [{smi}]")
 
 
+def adafactor_phase(smi: str) -> tuple:
+    """Kernel 5, the multi-tensor Adafactor, on the model of record's
+    leaves; see the module docstring, item 3.  -> (the phase's info, the
+    kernels line's entry); raises on any failure."""
+    import numpy as np
+    import torch
+
+    from music2midi_tpu_torch import profiling
+    from music2midi_tpu_torch.train import Adafactor
+    from music2midi_tpu_torch.train.adafactor import step_plain
+    from music2midi_tpu_torch.weights import load_npz
+
+    sd, _ = load_npz(RECORD)
+    leaves = [v.float() for v in sd.values() if v.is_floating_point()]
+    rng = np.random.default_rng(19)
+    grads = [torch.from_numpy(rng.standard_normal(x.shape, np.float32)
+                              * np.float32(10.0 ** rng.uniform(-4, 0))).cuda()
+             for x in leaves]
+
+    def fresh(lr=None):
+        params = [torch.nn.Parameter(x.cuda()) for x in leaves]
+        for p, g in zip(params, grads):
+            p.grad = g
+        return params, Adafactor(params, lr=lr, warmup_init=lr is None)
+
+    # a fixed lr of 1e-2 (a change far above an ulp of p, so the relative
+    # bar decides) and the recipe's relative step (a change of a few ulps),
+    # whose optimizers the checks below go on with
+    compare = {}
+    for lr in (1e-2, None):
+        kp, kopt = fresh(lr)
+        pp, popt = fresh(lr)
+        kopt.step()
+        step_plain(popt)
+        torch.cuda.synchronize()
+        worst_m = worst_p = 0.0
+        apart = 0  # elements not equal to the plain version's
+        for a, b, x in zip(kp, pp, leaves):
+            got, want, x = (a.detach().cpu().numpy(),
+                            b.detach().cpu().numpy(), x.numpy())
+            slack = np.spacing(np.maximum(np.abs(x), np.abs(want)))
+            over = (np.abs(got - want) - slack) / np.maximum(
+                np.abs(want - x), 1e-30)
+            worst_p = max(worst_p, float(over.max()))
+            apart += int(np.count_nonzero(got != want))
+            for key, m in popt.state[b].items():
+                if key != "step":
+                    ref = m.cpu().numpy()
+                    rel = np.abs(kopt.state[a][key].cpu().numpy() - ref) / ref
+                    worst_m = max(worst_m, float(rel.max()))
+        name = "relative step" if lr is None else f"lr {lr:g}"
+        require(worst_m <= ADAFACTOR_BARS[0],
+                f"adafactor, {name}: moments {worst_m:.3e} relative off the "
+                f"plain version's (bar {ADAFACTOR_BARS[0]})")
+        require(worst_p <= ADAFACTOR_BARS[1],
+                f"adafactor, {name}: a parameter change {worst_p:.3e} "
+                f"relative off the plain version's (bar {ADAFACTOR_BARS[1]})")
+        compare[name] = (worst_m, worst_p, apart)
+    again, aopt = fresh()
+    aopt.step()
+    require(all(torch.equal(a, b) for a, b in zip(kp, again)),
+            "adafactor: two kernel runs differ")
+    require(kopt.launches == 4 and kopt.tensors == len(leaves) == 146,
+            f"adafactor: {kopt.launches} launches over {kopt.tensors} leaves")
+
+    iters = 50
+    n0 = kopt.launches
+    ms, host_ms = device_ms(kopt.step, iters)
+    per_step = (kopt.launches - n0) / (2 * iters + 3)
+    plain_ms, plain_host_ms = device_ms(lambda: step_plain(popt), 5)
+    launches = {}
+    for name, fn in (("kernel", kopt.step), ("plain",
+                                             lambda: step_plain(popt))):
+        with tempfile.TemporaryDirectory() as td:
+            with profiling.trace(td):
+                with profiling.span("optimizer_step"):
+                    fn()
+            events = profiling.load_trace(td)
+        window = profiling.annotation_window(events, "optimizer_step")
+        launches[name] = sum(profiling.host_launches(events, window).values())
+    require(launches["kernel"] == 4,
+            f"adafactor: {launches['kernel']} host launches a kernel step")
+    n = sum(x.numel() for x in leaves)
+    moments = sum(sum(x.shape) if x.ndim == 2 else x.numel() for x in leaves)
+    # the function: p and g read once, p written once, the moments read
+    # and written; the kernel's passes: p, g | g | g, p and p written
+    need, passes = 12 * n + 8 * moments, 24 * n + 8 * moments
+    bound_ms, bound_by, _, _ = _bound(need, 20.0 * n)
+    algo_ms = passes / HBM_BYTES_PER_S * 1e3
+    entry = {"name": "adafactor", "route": "cuda",
+             "source": "music2midi_tpu_torch/csrc/adafactor.cu",
+             "replaces": None, "launches": 0,
+             "max_rel_err": max(c[0] for c in compare.values()),
+             "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+             "plain_host_ms": plain_host_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "algorithm_bound_ms": algo_ms,
+             "library_ms": None,
+             "shape": f"146 fp32 leaves, {n} parameters"}
+    info = (f"adafactor (146 leaves, {n} parameters), against the plain "
+            f"version: " + "; ".join(
+                f"{name}: moments within {m:.3e} relative, parameter changes "
+                f"{p:.3e} past an ulp, {u} of {n} elements apart"
+                for name, (m, p, u) in compare.items()) +
+            f" (bars {ADAFACTOR_BARS}); bit-equal twice; kernel ms a step="
+            f"{ms:.4f} host-inclusive={host_ms:.4f} launches a step="
+            f"{per_step:g} (profiler: {launches['kernel']}); plain ms="
+            f"{plain_ms:.4f} host-inclusive={plain_host_ms:.4f} launches "
+            f"a step={launches['plain']}; bound_ms={bound_ms:.4f} "
+            f"({bound_by}: {need} B) passes_bound_ms={algo_ms:.4f} "
+            f"({passes} B) [{smi}]")
+    return info, entry
+
+
 def _wrappers() -> list:
     from music2midi_tpu_torch.ops import decode_attention as da
     from music2midi_tpu_torch.ops import mel_cuda
+    from music2midi_tpu_torch.train import adafactor
 
     return [mel_cuda.log_mel_spectrogram_cuda,
             mel_cuda.log_mel_spectrogram_dft_cuda,
-            da.decode_attention_int8, da.decode_attention_cross_t]
+            da.decode_attention_int8, da.decode_attention_cross_t,
+            adafactor.adafactor_kernel]
 
 
 def main() -> int:
@@ -2418,6 +2565,9 @@ def main() -> int:
         ph.info = (f"max_abs_err int8={int8_entry['max_abs_err']:.3e} "
                    f"cross_t={cross_t_entry['max_abs_err']:.3e} "
                    f"(bar {ATTN_BAR})")
+
+    with Phase("kernel_vs_plain_adafactor") as ph:
+        ph.info, adafactor_entry = adafactor_phase(smi)
 
     fixture, fixture_sr = render_fixture()
     with Phase("serving_path") as ph:
@@ -2716,7 +2866,8 @@ def main() -> int:
     with Phase("training") as ph, tempfile.TemporaryDirectory() as td:
         path = str(Path(td) / "a4_22050.wav")
         write_wav(path, fixture, fixture_sr)
-        ph.info = training_phase(smi, launches_of, check_midi, path, corpus)
+        ph.info = training_phase(smi, launches_of, check_midi, path, corpus,
+                                 adafactor_entry)
 
     with Phase("entry_points") as ph:
         ph.info = entry_points_phase(smi, launches_of, engine, corpus)
@@ -2738,7 +2889,7 @@ def main() -> int:
     with Phase("kernels"):
         print(json.dumps({"kernels": [
             mel_entries["log_mel_fft"], mel_entries["log_mel_dft"],
-            int8_entry, cross_t_entry]}), flush=True)
+            int8_entry, cross_t_entry, adafactor_entry]}), flush=True)
 
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

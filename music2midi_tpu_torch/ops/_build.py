@@ -49,6 +49,8 @@ _SIGNATURES = {
                                   _c_int64] + [_c_void_p] * 6,
     # (pointer to the argument struct, number of blocks, stream)
     "m2m_decode_attention_cross_t": [_c_void_p, _c_int, _c_void_p],
+    # (pointer to the argument struct, phase 0-3, stream)
+    "m2m_adafactor_phase": [_c_void_p, _c_int, _c_void_p],
 }
 
 

@@ -40,7 +40,8 @@ A step is a ``train.step`` span (``profiling.span``, recorded while a
 profiler or ``profiling.recording()`` is on; ``step``) over ``h2d`` (the
 batch to the device and the dropout generator), ``forward`` (mel and
 loss), ``backward``, under a mesh ``reduce`` (the gradient collectives),
-and ``optimizer``.
+and ``optimizer`` (``launches``: the Adafactor kernel's launches in the
+step; ``tensors``: the leaves it updated).
 """
 
 from __future__ import annotations
@@ -222,8 +223,11 @@ def make_train_step(t5_cfg: T5Config, mel_cfg: LogMelConfig, mesh=None):
             if mesh is not None:
                 with span("reduce"):
                     reduce_gradients(state.model, mesh)
-            with span("optimizer"):
+            with span("optimizer") as sp:
+                launches = state.optimizer.launches
                 state.optimizer.step()
+                sp.set(launches=state.optimizer.launches - launches,
+                       tensors=state.optimizer.tensors)
             state.step += 1
             loss = loss.detach()
             if dp is not None:

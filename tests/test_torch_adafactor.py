@@ -14,6 +14,16 @@ The step's float32 scalars equal JAX's: the step size bit for bit,
 beta2_t within one ulp (XLA's pow and libm's may round apart).  ``MultiSteps`` against ``optax.MultiSteps`` at the parameters'
 bar; ``adafactor_lr_at`` equal; the moments float32 whatever the
 parameter dtype, through a state_dict round trip too.
+
+The phase form (``Adafactor.step`` over all leaves at once, its sums in
+one statistics buffer): on the CPU it is the per-parameter loop it
+replaced bit for bit (the loop is kept here as ``_LoopAdafactor``); a
+``state_dict`` keeps each parameter's keys, shapes and float32 moments;
+a state the loop saved loads and steps to the loop's parameters; a
+loaded state lands in the moment buffer the state's views (and the
+kernel's tables) already point at; and two gloo ranks step a row-split
+and a column-split matrix as one device does, with one ``all_reduce`` a
+phase.
 """
 
 import jax
@@ -204,3 +214,217 @@ def test_moments_stay_float32_for_bf16_params():
             if k in a:
                 assert b[k].dtype == torch.float32
                 assert torch.equal(a[k], b[k])
+
+
+# --------------------------------------------------------------------- #
+# the phase form: state, checkpoints, tensor parallelism, the kernel's  #
+# tables                                                                #
+# --------------------------------------------------------------------- #
+
+
+class _LoopAdafactor(torch.optim.Optimizer):
+    """The per-parameter loop that ``Adafactor.step`` was before its phase
+    form (no tensor parallelism), kept as the reference of the arithmetic
+    and of the checkpoints it wrote: each moment its own tensor."""
+
+    def __init__(self, params, lr=None, warmup_init=True):
+        super().__init__(list(params), dict(lr=lr, warmup_init=warmup_init))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            for p in group["params"]:
+                st = self.state[p]
+                if not st:
+                    st["step"] = 0
+                    if p.ndim >= 2:
+                        st["row"] = torch.zeros(p.shape[:-1])
+                        st["col"] = torch.zeros(p.shape[:-2] + p.shape[-1:])
+                    else:
+                        st["v"] = torch.zeros(p.shape)
+                st["step"] += 1
+                beta2t, one_minus, rel = Adafactor._scalars(st["step"], group)
+                g = p.grad.float()
+                lr = p.float().square().mean().sqrt().clamp(min=1e-3) * rel
+                sq = g.square() + 1e-30
+                if p.ndim >= 2:
+                    row = st["row"].mul_(beta2t).add_(sq.mean(-1),
+                                                      alpha=one_minus)
+                    col = st["col"].mul_(beta2t).add_(sq.mean(-2),
+                                                      alpha=one_minus)
+                    r = torch.rsqrt(row / row.mean(-1, keepdim=True))[
+                        ..., None]
+                    upd = r * torch.rsqrt(col)[..., None, :] * g
+                else:
+                    v = st["v"].mul_(beta2t).add_(sq, alpha=one_minus)
+                    upd = torch.rsqrt(v) * g
+                upd = upd / (upd.square().mean().sqrt() / 1.0).clamp(min=1.0)
+                p.add_((-(upd * lr)).to(p.dtype))
+
+
+def _params(init):
+    return [torch.nn.Parameter(torch.from_numpy(x.copy())) for x in init]
+
+
+def _step(opt, params, gs):
+    for p, g in zip(params, gs):
+        p.grad = torch.from_numpy(g.copy())
+    opt.step()
+
+
+def _saved(opt) -> dict:
+    """``opt.state_dict()`` through ``torch.save`` and back, as a
+    checkpoint holds it."""
+    import io
+
+    buf = io.BytesIO()
+    torch.save(opt.state_dict(), buf)
+    buf.seek(0)
+    return torch.load(buf, weights_only=True)
+
+
+@pytest.mark.parametrize("lr, warmup_init", [(None, True), (0.05, False)])
+def test_phase_form_is_the_loop_bit_for_bit(lr, warmup_init):
+    """On the CPU the phase form does the per-parameter loop's arithmetic
+    op for op (a mean is PyTorch's sum over the count there), so five
+    steps give the loop's parameters and moments bit for bit."""
+    init, grads = _draws(2)
+    a, b = _params(init), _params(init)
+    loop = _LoopAdafactor(a, lr=lr, warmup_init=warmup_init)
+    opt = Adafactor(b, lr=lr, warmup_init=warmup_init)
+    for gs in grads:
+        _step(loop, a, gs)
+        _step(opt, b, gs)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+        for k in ("row", "col", "v"):
+            if k in loop.state[x]:
+                assert torch.equal(loop.state[x][k], opt.state[y][k])
+
+
+def test_state_dict_round_trip_keeps_keys_shapes_and_fp32():
+    init, grads = _draws(3)
+    params = _params(init)
+    opt = Adafactor(params)
+    for gs in grads[:2]:
+        _step(opt, params, gs)
+    saved = _saved(opt)
+    want = {0: {"row": (384,), "col": (512,)}, 1: {"row": (32,), "col": (8,)},
+            2: {"v": (384,)}, 3: {"row": (3, 16), "col": (3, 24)}}
+    for i, st in saved["state"].items():
+        assert sorted(st) == sorted(["step", *want[i]])
+        assert st["step"] == 2
+        for k, shape in want[i].items():
+            assert tuple(st[k].shape) == shape
+            assert st[k].dtype == torch.float32
+    again = Adafactor(_params(init))
+    again.load_state_dict(saved)
+    for i, (x, y) in enumerate(zip(params, again.param_groups[0]["params"])):
+        for k in want[i]:
+            got = again.state[y][k]
+            assert got.dtype == torch.float32 and tuple(got.shape) == \
+                want[i][k]
+            assert torch.equal(got, opt.state[x][k])
+
+
+def test_a_checkpoint_of_the_loop_loads_and_steps_alike():
+    """A state the per-parameter loop saved (a tensor a moment) loads into
+    the phase form, whose next steps give the loop's parameters."""
+    init, grads = _draws(4)
+    a = _params(init)
+    loop = _LoopAdafactor(a)
+    for gs in grads[:3]:
+        _step(loop, a, gs)
+    b = _params([x.detach().numpy() for x in a])
+    opt = Adafactor(b)
+    opt.load_state_dict(_saved(loop))
+    for gs in grads[3:]:
+        _step(loop, a, gs)
+        _step(opt, b, gs)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert {s["step"] for s in opt.state.values()} == {N_STEPS}
+    bad = _saved(loop)
+    bad["state"][0]["row"] = torch.zeros(7)
+    with pytest.raises(ValueError, match="moment 'row'"):
+        Adafactor(_params(init)).load_state_dict(bad)
+
+
+def test_the_next_step_reads_the_loaded_moments():
+    """``load_state_dict`` copies into the moment buffer that the state's
+    views (and so the kernel's table) point at: an optimizer that has
+    stepped, then loads another's state, keeps its views' addresses, holds
+    the loaded values there, and steps as the other does."""
+    init, grads = _draws(5)
+    a, b = _params(init), _params(init)
+    opt_a, opt_b = Adafactor(a), Adafactor(b)
+    _step(opt_b, b, grads[4])  # a plan and views of its own first
+    def addresses(opt, params):
+        return [t.data_ptr() for p in params
+                for k, t in sorted(opt.state[p].items()) if k != "step"]
+
+    views = addresses(opt_b, b)
+    for gs in grads[:3]:
+        _step(opt_a, a, gs)
+    with torch.no_grad():
+        for x, y in zip(a, b):
+            y.copy_(x)
+    opt_b.load_state_dict(_saved(opt_a))
+    assert addresses(opt_b, b) == views
+    for x, y in zip(a, b):
+        for k, t in opt_b.state[y].items():
+            if k != "step":
+                assert torch.equal(t, opt_a.state[x][k])
+    _step(opt_a, a, grads[3])
+    _step(opt_b, b, grads[3])
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_tensor_parallel_step_updates_each_slice_as_one_device(tmp_path):
+    """Two gloo ranks (``tests/_adafactor_tp_child.py``) step a
+    row-split, a column-split and two replicated leaves three times: each
+    rank's slices of the parameters' changes within rtol 1e-5 of the
+    one-device step's, its moments within rtol 1e-6 (the all-reduced sums
+    add the ranks' halves in another order), and each step makes exactly
+    three ``all_reduce`` calls, one a phase."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    import _adafactor_tp_child as child
+
+    root = Path(__file__).resolve().parent.parent
+    env = {**os.environ, "PYTHONPATH": str(root), "OMP_NUM_THREADS": "1"}
+    init_file, world = tmp_path / "init", 2
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(child.__file__)), str(r), str(world),
+         str(init_file), str(tmp_path / f"rank{r}.pt")], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    for p in procs:
+        out, _ = p.communicate(timeout=120)
+        assert p.returncode == 0, out
+    init, grads = child.draws()
+    full = _params(init)
+    opt = Adafactor(full, lr=child.LR, warmup_init=False)
+    for gs in grads:
+        _step(opt, full, gs)
+    for r in range(world):
+        got = torch.load(tmp_path / f"rank{r}.pt", weights_only=True)
+        assert got["calls"] == [3] * child.N_STEPS
+        for i, d in enumerate(child.SPLITS):
+            def mine(x):
+                return child.local(np.asarray(x), d, r, world)
+            np.testing.assert_allclose(
+                got["params"][i].numpy() - mine(init[i]),
+                mine(full[i].detach().numpy()) - mine(init[i]),
+                rtol=1e-5, atol=1e-6 * np.abs(init[i]).max())
+            for k, m in got["moments"][i].items():
+                want = opt.state[full[i]][k].numpy()
+                if (d, k) in ((0, "row"), (1, "col")):
+                    want = child.local(want, 0, r, world)
+                np.testing.assert_allclose(m.numpy(), want, rtol=1e-6,
+                                           atol=0)

@@ -610,3 +610,201 @@ def test_kernel_route_holds_the_c1_bar_on_the_song(card):
         same += int((t_k[r, :m] == t_p[r, :m]).sum())
         total += m
     assert same / total >= C1_BAR, (same, total)
+
+
+# --------------------------------------------------------------------- #
+# the multi-tensor Adafactor kernel (csrc/adafactor.cu)                  #
+# --------------------------------------------------------------------- #
+
+ADAFACTOR_STEPS = 3
+_ADAFACTOR_INPUTS = {}
+
+
+def _adafactor_inputs():
+    """The model of record's 146 floating leaves (fp32, as
+    ``trainable_model`` makes the masters) and ADAFACTOR_STEPS steps of
+    numpy-made gradients, each leaf at a scale of its own (1e-4 to 1)."""
+    if not _ADAFACTOR_INPUTS:
+        from music2midi_tpu_torch.weights import load_npz
+
+        sd, _ = load_npz(RECORD)
+        leaves = [v.float().numpy() for v in sd.values()
+                  if v.is_floating_point()]
+        rng = np.random.default_rng(19)
+        grads = [[(rng.standard_normal(x.shape, np.float32)
+                   * np.float32(10.0 ** rng.uniform(-4, 0))) for x in leaves]
+                 for _ in range(ADAFACTOR_STEPS)]
+        _ADAFACTOR_INPUTS.update(leaves=leaves, grads=grads)
+    return _ADAFACTOR_INPUTS["leaves"], _ADAFACTOR_INPUTS["grads"]
+
+
+def _adafactor(leaves, device, lr):
+    from music2midi_tpu_torch.train import Adafactor
+
+    params = [torch.nn.Parameter(torch.from_numpy(x.copy()).to(device))
+              for x in leaves]
+    return params, Adafactor(params, lr=lr, warmup_init=lr is None)
+
+
+def _kernel_run(card, lr=None):
+    """Three kernel steps from the model of record -> (params, optimizer,
+    launches a step)."""
+    leaves, grads = _adafactor_inputs()
+    params, opt = _adafactor(leaves, card, lr)
+    launches = []
+    for gs in grads:
+        for p, g in zip(params, gs):
+            p.grad = torch.from_numpy(g).to(card)
+        n = opt.launches
+        opt.step()
+        launches.append(opt.launches - n)
+    torch.cuda.synchronize()
+    return params, opt, launches
+
+
+@pytest.mark.parametrize("lr", [None, 1e-2])
+def test_adafactor_kernel_matches_plain_on_model_of_record(card, lr):
+    """The kernel on the model of record's 146 leaves against the plain
+    version on the CPU, step by step from the same parameters (each step
+    starts the kernel's leaves from the plain version's), with the
+    recipe's relative step and a fixed lr: every moment within 1e-6
+    relative, and each step's parameter change within 1e-5 relative plus
+    an ulp of the parameter (the two may round p + step apart).  Only the
+    sums differ (sum p^2, the row and column sums of g^2, the row
+    factor's sum, sum upd^2): the kernel adds tile partials in its fixed
+    order, PyTorch on the CPU in its own; every product, square root and
+    division is the same float32 op."""
+    leaves, grads = _adafactor_inputs()
+    kp, kopt = _adafactor(leaves, card, lr)
+    cp, copt = _adafactor(leaves, torch.device("cpu"), lr)
+    for k, gs in enumerate(grads, 1):
+        with torch.no_grad():
+            for a, b in zip(kp, cp):
+                a.copy_(b)
+        before = [b.detach().numpy().copy() for b in cp]
+        for a, b, g in zip(kp, cp, gs):
+            a.grad, b.grad = torch.from_numpy(g).to(card), \
+                torch.from_numpy(g.copy())
+        kopt.step()
+        copt.step()
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(kp, cp)):
+            got, want = a.detach().cpu().numpy(), b.detach().numpy()
+            excess = np.abs(got - want) - (
+                1e-5 * np.abs(want - before[i])
+                + np.spacing(np.maximum(np.abs(before[i]), np.abs(want))))
+            assert excess.max() <= 0, (f"step {k}, leaf {i}: parameter "
+                                       f"change off by {excess.max()}")
+            for key, m in copt.state[b].items():
+                if key != "step":
+                    np.testing.assert_allclose(
+                        kopt.state[a][key].cpu().numpy(), m.numpy(),
+                        rtol=1e-6, atol=0,
+                        err_msg=f"step {k}, leaf {i}: moment {key}")
+
+
+def test_adafactor_kernel_is_deterministic(card):
+    """No float atomics: two runs give the same parameters and moments
+    bit for bit."""
+    (p1, o1, _), (p2, o2, _) = _kernel_run(card), _kernel_run(card)
+    for a, b in zip(p1, p2):
+        assert torch.equal(a, b)
+        for key, m in o1.state[a].items():
+            if key != "step":
+                assert torch.equal(m, o2.state[b][key])
+
+
+def test_adafactor_kernel_launches_four_a_step(card):
+    """4 a step by the optimizer's count and by the wrapper's, which
+    ``chip_smoke.py`` reads beside the other kernels'."""
+    from music2midi_tpu_torch.train.adafactor import adafactor_kernel
+
+    n = adafactor_kernel.launches
+    _, opt, launches = _kernel_run(card)
+    assert launches == [4] * ADAFACTOR_STEPS
+    assert adafactor_kernel.launches - n == 4 * ADAFACTOR_STEPS
+    assert opt.tensors == 146
+
+
+def test_adafactor_kernel_step_never_waits_on_the_card(card):
+    """Under ``torch.cuda.set_sync_debug_mode("error")``, from a fresh
+    optimizer (its tables written at the first step): no step
+    synchronizes with the card."""
+    leaves, grads = _adafactor_inputs()
+    params, opt = _adafactor(leaves, card, None)
+    on_card = [[torch.from_numpy(g).to(card) for g in gs] for gs in grads]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for gs in on_card:
+            for p, g in zip(params, gs):
+                p.grad = g
+            opt.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert opt.launches == 4 * ADAFACTOR_STEPS
+
+
+@pytest.mark.parametrize("leaf", ["bfloat16", "3-d", "strided grad"])
+def test_adafactor_kernel_raises_on_a_leaf_it_does_not_take(card, leaf):
+    from music2midi_tpu_torch.train import Adafactor
+
+    x = torch.randn(8, 16, device=card)
+    if leaf == "bfloat16":
+        x = x.bfloat16()
+    elif leaf == "3-d":
+        x = x.view(2, 4, 16)
+    p = torch.nn.Parameter(x)
+    g = torch.randn_like(p)
+    if leaf == "strided grad":
+        g = torch.randn(16, 8, device=card).t()
+    p.grad = g
+    with pytest.raises(ValueError, match="Adafactor kernel"):
+        Adafactor([p]).step()
+
+
+def test_adafactor_kernel_launches_per_chunk_past_max_leaves(card,
+                                                             monkeypatch):
+    """Leaves are cut into launches of at most MAX_LEAVES (here lowered to
+    64) and where the step scalars change (a leaf stepped once more than
+    the rest): 300 leaves of ragged shapes, two steps, against the plain
+    version on the CPU at the bars above; 4 launches a step for each
+    chunk."""
+    from music2midi_tpu_torch.train import Adafactor
+    from music2midi_tpu_torch.train import adafactor as ad
+
+    monkeypatch.setattr(ad, "MAX_LEAVES", 64)
+    rng = np.random.default_rng(5)
+    shapes = [tuple(int(d) for d in rng.integers(1, 300, rng.integers(1, 3)))
+              for _ in range(300)]
+    leaves = [rng.normal(size=s).astype(np.float32) for s in shapes]
+    sides = []
+    for dev in (card, torch.device("cpu")):
+        params = [torch.nn.Parameter(torch.from_numpy(x.copy()).to(dev))
+                  for x in leaves]
+        sides.append((params, Adafactor(params)))
+    for k in range(3):
+        gs = [(rng.normal(size=s) * 10.0 ** rng.uniform(-3, 0)).astype(
+            np.float32) for s in shapes]
+        for params, opt in sides:
+            for i, (p, g) in enumerate(zip(params, gs)):
+                # leaf 100 alone in the first step: a step ahead after it
+                p.grad = torch.from_numpy(g).to(p.device) \
+                    if k > 0 or i == 100 else None
+            opt.step()
+    (kp, kopt), (cp, copt) = sides
+    torch.cuda.synchronize()
+    # steps 2 and 3: chunks [0, 64), [64, 100), [100], [101, 165), ...
+    assert kopt.launches == 4 + 2 * 4 * 7
+    for i, (a, b) in enumerate(zip(kp, cp)):
+        got, want = a.detach().cpu().numpy(), b.detach().numpy()
+        excess = np.abs(got - want) - (
+            1e-5 * np.abs(want - leaves[i])
+            + 3 * np.spacing(np.maximum(np.abs(leaves[i]), np.abs(want))))
+        assert excess.max() <= 0, (i, excess.max())
+        for key, m in copt.state[b].items():
+            if key != "step":
+                np.testing.assert_allclose(
+                    kopt.state[a][key].cpu().numpy(), m.numpy(), rtol=1e-6,
+                    atol=0, err_msg=f"leaf {i}: moment {key}")

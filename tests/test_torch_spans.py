@@ -4,7 +4,9 @@ Bars: one ``generate_batch`` through ``DynamicBatcher`` gives the serving
 call's span tree (each span on its thread under its parent, the request
 ids of the ``request`` spans those of the ``dispatch`` that served them,
 ``decode`` carrying its steps and host syncs); a train step gives
-``train.step`` over ``h2d``, ``forward``, ``backward`` and ``optimizer``;
+``train.step`` over ``h2d``, ``forward``, ``backward`` and ``optimizer``
+(carrying the Adafactor kernel's launches, none on the CPU, and the
+leaves updated), which ``train.optimizer_launches_per_step`` reads;
 nothing records with no profiler and no ``recording()``; the buffer keeps
 the newest spans and counts what it dropped, from 16 threads at once with
 no span lost or misparented; spans recorded under
@@ -166,7 +168,43 @@ def test_a_train_step_gives_its_four_parts():
         assert [r["name"] for r in kids] == ["h2d", "forward", "backward",
                                             "optimizer"]
         assert all(_within(r, root) for r in kids)
+        assert kids[-1]["attrs"] == {
+            "launches": 0,
+            "tensors": sum(p.requires_grad for p in model.parameters())}
     assert len(records) == 10
+
+
+def test_the_optimizer_launches_metric_reads_the_optimizer_spans(
+        monkeypatch):
+    """``benchmark/metrics/train.optimizer_launches_per_step.py``: the
+    ``optimizer`` spans' launches over their number in the traced slice;
+    nothing where the spans carry no count (a program before the
+    counter), without spans or without a card."""
+    from types import SimpleNamespace
+
+    from benchmark import spec
+
+    def span(sid, name, t0, t1, parent=None, **attrs):
+        return {"name": name, "id": sid, "parent": parent, "thread": "t",
+                "t0_ns": t0 * 1000, "t1_ns": t1 * 1000, "attrs": attrs}
+
+    ctx = {"on_card": True, "trace": {"slice": SimpleNamespace(
+        events=[], window=(0.0, 100.0))}}
+    read = spec.metric_reader("train.optimizer_launches_per_step")
+    steps = [span(1, "train.step", 0, 40, step=0),
+             span(2, "optimizer", 30, 40, 1, launches=4, tensors=146),
+             span(3, "train.step", 50, 90, step=1),
+             span(4, "optimizer", 75, 90, 3, launches=8, tensors=146),
+             span(5, "optimizer", 200, 300, None, launches=99)]  # outside
+    monkeypatch.setattr(profiling, "spans", lambda: steps)
+    assert read(ctx) == 6.0
+    assert read({**ctx, "on_card": False}) is None
+    monkeypatch.setattr(profiling, "spans", lambda: [
+        {**s, "attrs": {}} if s["name"] == "optimizer" else s
+        for s in steps])
+    assert read(ctx) is None
+    monkeypatch.setattr(profiling, "spans", lambda: [])
+    assert read(ctx) is None
 
 
 def test_nothing_records_without_a_profiler_or_recording(engine):
