@@ -205,7 +205,13 @@ and exits non-zero, and nothing is caught and passed over:
      run (``MultiSteps`` mid-cycle) takes 2 fp32 steps on the card, the
      losses within ``ORBAX_LOSS_BAR`` relative of the JAX steps' stored
      losses; the decoder's MB/s on this host;
-  18. the ``kernels`` JSON line.
+  18. kernels: kernel 6 (the hybrid decoder's Mamba-2 state update,
+     which no T5 path runs) against its plain version on the same card
+     inputs at granite-4.0-h's widths and serving batch (128 rows of a
+     128 x 64 x 128 state), three steps in place: y and the float32 state
+     within ``SSM_BAR`` of their largest, a bfloat16 state within one of
+     its ulps; timed with its plain version against the state's bytes;
+     then the ``kernels`` JSON line.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -250,6 +256,9 @@ C1_BAR = 0.96
 # Adafactor kernel vs plain: moments relative; a step's parameter change
 # relative, beside an ulp of the parameter (the sums run in other orders)
 ADAFACTOR_BARS = (1e-6, 1e-5)
+# kernel 6 vs plain, relative to the largest |y| or |state|: the two sum
+# h * C in other orders and the kernel fuses the update's multiply-add
+SSM_BAR = 1e-5
 
 
 def require(ok: bool, what) -> None:
@@ -2414,15 +2423,105 @@ def adafactor_phase(smi: str) -> tuple:
     return info, entry
 
 
+def ssm_state_update_phase(smi: str) -> tuple:
+    """Kernel 6 at granite-4.0-h's widths (H 128, P 64, N 128, G 1) and
+    128 rows; see the module docstring, item 18.  -> (the phase's info,
+    the kernels line's entry); raises on any failure."""
+    import torch
+
+    from music2midi_tpu_torch.ops import ssm_state_update as su
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    B, H, P, N = 128, 128, 64, 128
+
+    def normal(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    # the served step's operands: A = -exp(A_log) in [-16, -1], dt after
+    # softplus, D = 1
+    h0 = normal(B, H, P, N, scale=0.1)
+    A = -(1.0 + 15.0 * torch.rand(H, generator=g, device="cuda"))
+    D = torch.ones(H, device="cuda")
+    steps = [(normal(B, H, P), torch.rand(B, H, generator=g, device="cuda")
+              * 0.1, normal(B, 1, N), normal(B, 1, N)) for _ in range(3)]
+    n0 = su.ssm_state_update.launches
+    calls = 0
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        hk = h0.to(dtype)
+        hp = hk.clone()
+        err_y = err_h = ulps = 0.0
+        for x, dt, Bm, Cm in steps:
+            hp.copy_(hk)  # each step from the same state
+            yk = su.ssm_state_update(hk, x, dt, A, Bm, Cm, D)
+            yp = su.ssm_state_update_plain(hp, x, dt, A, Bm, Cm, D)
+            torch.cuda.synchronize()
+            calls += 1
+            err_y = max(err_y, float((yk - yp).abs().max() / yp.abs().max()))
+            diff = (hk.float() - hp.float()).abs()
+            err_h = max(err_h, float(diff.max() / hp.float().abs().max()))
+            # in ulps of the state's dtype, above a floor of float32
+            # round-off where the update cancels
+            ulp = torch.finfo(dtype).eps * torch.maximum(hk.float().abs(),
+                                                         hp.float().abs()) \
+                + 1e-6 * hp.float().abs().max()
+            ulps = max(ulps, float((diff / ulp).max()))
+        worst[dtype] = (err_y, err_h, ulps)
+        require(err_y <= SSM_BAR,
+                f"ssm_state_update {dtype}: y {err_y:.3e} relative off the "
+                f"plain version's (bar {SSM_BAR})")
+        if dtype == torch.float32:
+            require(err_h <= SSM_BAR,
+                    f"ssm_state_update: the state {err_h:.3e} relative off "
+                    f"the plain version's (bar {SSM_BAR})")
+        else:  # rounded from float32 values an ulp of float32 apart
+            require(ulps <= 1.0,
+                    f"ssm_state_update bfloat16: the state {ulps:.3g} ulps "
+                    "off the plain version's (bar one)")
+    x, dt, Bm, Cm = steps[0]
+    h = h0.clone()
+    iters = 50
+    ms, host_ms = device_ms(
+        lambda: su.ssm_state_update(h, x, dt, A, Bm, Cm, D), iters)
+    calls += 2 * iters + 3
+    plain_ms, plain_host_ms = device_ms(
+        lambda: su.ssm_state_update_plain(h, x, dt, A, Bm, Cm, D), 5)
+    launches = su.ssm_state_update.launches - n0
+    require(launches == calls,
+            f"ssm_state_update: {launches} launches for {calls} calls")
+    # the state read and written once; 5 flops an element of it
+    need = 2 * h.numel() * h.element_size()
+    bound_ms, bound_by, _, _ = _bound(need, 5.0 * h.numel())
+    err_y, err_h, _ = worst[torch.float32]
+    entry = {"name": "ssm_state_update", "route": "cuda",
+             "source": "music2midi_tpu_torch/csrc/ssm_state_update.cu",
+             "replaces": None, "launches": launches,
+             "max_rel_err": max(err_y, err_h), "ms": ms, "host_ms": host_ms,
+             "plain_ms": plain_ms, "plain_host_ms": plain_host_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+             "shape": f"state ({B}, {H}, {P}, {N}) f32, G 1"}
+    info = (f"ssm_state_update ({B} rows, {H} x {P} x {N}) against the plain "
+            "version on the same inputs, 3 steps: " + "; ".join(
+                f"{str(d).split('.')[-1]} state: y {e_y:.3e}, state {e_h:.3e}"
+                f" relative, {u:.3g} ulps at most"
+                for d, (e_y, e_h, u) in worst.items()) +
+            f" (bar {SSM_BAR}); kernel ms={ms:.4f} host-inclusive="
+            f"{host_ms:.4f}; plain ms={plain_ms:.4f} host-inclusive="
+            f"{plain_host_ms:.4f}; bound_ms={bound_ms:.4f} ({bound_by}: "
+            f"{need} B); launches={launches} for {calls} calls [{smi}]")
+    return info, entry
+
+
 def _wrappers() -> list:
     from music2midi_tpu_torch.ops import decode_attention as da
     from music2midi_tpu_torch.ops import mel_cuda
+    from music2midi_tpu_torch.ops import ssm_state_update as su
     from music2midi_tpu_torch.train import adafactor
 
     return [mel_cuda.log_mel_spectrogram_cuda,
             mel_cuda.log_mel_spectrogram_dft_cuda,
             da.decode_attention_int8, da.decode_attention_cross_t,
-            adafactor.adafactor_kernel]
+            adafactor.adafactor_kernel, su.ssm_state_update]
 
 
 def main() -> int:
@@ -2455,12 +2554,16 @@ def main() -> int:
     wrappers = _wrappers()
 
     def launches_of(fn) -> dict:
-        """Counts to 0, run fn, read every count just after."""
+        """Counts to 0, run fn, read every count just after; kernel 6
+        (the hybrid decoder's) must not run on these T5 paths."""
         for w in wrappers:
             w.launches = 0
         out = fn()
         torch.cuda.synchronize()
-        return out, {w.__name__: w.launches for w in wrappers}
+        counts = {w.__name__: w.launches for w in wrappers}
+        require(counts["ssm_state_update"] == 0,
+                f"a T5 path launched kernel 6: {counts}")
+        return out, counts
 
     with Phase("environment") as ph:
         kind = torch.cuda.get_device_name(0)
@@ -2886,10 +2989,12 @@ def main() -> int:
         write_wav(path, fixture, fixture_sr)
         ph.info = orbax_phase(smi, launches_of, path)
 
-    with Phase("kernels"):
+    with Phase("kernels") as ph:
+        ph.info, ssm_entry = ssm_state_update_phase(smi)
         print(json.dumps({"kernels": [
             mel_entries["log_mel_fft"], mel_entries["log_mel_dft"],
-            int8_entry, cross_t_entry, adafactor_entry]}), flush=True)
+            int8_entry, cross_t_entry, adafactor_entry, ssm_entry]}),
+            flush=True)
 
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

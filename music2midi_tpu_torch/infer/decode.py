@@ -67,6 +67,14 @@ together.  Its program runs eagerly on a card too (``captures``): a gloo
 collective cannot be captured in a CUDA graph, and capturing NCCL's is
 not done here.
 
+``HybridDecodeProgram`` is the same loop over the hybrid decoder
+(``models/granite_hybrid.py``): its static state is the Mamba layers'
+SSM states and conv tails beside the attention layer's KV cache, its
+prologue the prefill over the prefix (a ``prefill`` span), and its step
+``granite_hybrid.decode_step`` at position ``enc_len + step``; the MoE's
+routing counters are added up in the graph and read once a generation.
+``generate_tokens`` picks it for a ``GraniteHybrid`` model.
+
 ``DecodeConfig.pallas_attention`` and ``pallas_cross`` keep the JAX field
 names: they route the int8 attention blocks through the decode-attention
 kernels (``ops/decode_attention.py``), which run as CUDA kernels on CUDA
@@ -87,6 +95,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..models import granite_hybrid as _gh
 from ..models.t5 import (
     CrossKV,
     T5Config,
@@ -100,6 +109,7 @@ from ..models.t5 import (
     transpose_cross_kv,
 )
 from ..ops import decode_attention as _da
+from ..ops import ssm_state_update as _ssu
 from ..profiling import span
 
 
@@ -192,7 +202,8 @@ class _Graph(NamedTuple):
 
 def _counted() -> tuple:
     """The kernel wrappers whose launch counts a graph carries."""
-    return (_da.decode_attention_int8, _da.decode_attention_cross_t)
+    return (_da.decode_attention_int8, _da.decode_attention_cross_t,
+            _ssu.ssm_state_update)
 
 
 def captures(model: T5Model, device) -> bool:
@@ -240,6 +251,13 @@ class DecodeProgram:
             if dcfg.pallas_attention and quant else None
         self.suppress = suppression_index(dcfg, dev)
         self.phases = _phase_lengths(cache_len, self.plan is None)
+        self.first_pos = 0  # the cache position of the start token
+        self._loop_state(batch, dev)
+
+    def _loop_state(self, batch: int, dev: torch.device) -> None:
+        """The loop's own static state: tokens, token, done, step, the
+        generator, the graphs and the lock."""
+        dcfg = self.dcfg
         self.tokens = torch.empty((batch, self.buf_len), dtype=torch.int32,
                                   device=dev)
         self.token = torch.empty(batch, dtype=torch.int32, device=dev)
@@ -272,6 +290,12 @@ class DecodeProgram:
             model, cfg, quantize_weights=dcfg.quantize_weights))
         self.bias_rows.copy_(decoder_bias_rows(
             self.dparams["rel_bias"], self.bias_rows.shape[1], cfg))
+        self._reset(generator)
+
+    def _reset(self, generator: Optional[torch.Generator]) -> None:
+        """Tokens, done, step and the generator's state for a new
+        generation."""
+        cfg = self.cfg
         self.tokens.fill_(cfg.pad_token_id)
         self.tokens[:, 0] = cfg.decoder_start_token_id
         self.token.fill_(cfg.decoder_start_token_id)
@@ -287,10 +311,7 @@ class DecodeProgram:
         keys the plain routes read are the first ``phase``."""
         cfg, dcfg = self.cfg, self.dcfg
         for _ in range(self.unroll):
-            logits = decode_step(self.dparams, self.token, self.step,
-                                 self.cache, self.cross, cfg, self.bias_rows,
-                                 self.plan, cache_len=phase,
-                                 tp_group=self.tp_group)
+            logits = self._logits(phase)
             nxt = _select_next(logits, dcfg, self.generator, self.suppress)
             nxt = torch.where(self.done, cfg.pad_token_id, nxt)
             self.done |= nxt == cfg.eos_token_id
@@ -298,6 +319,16 @@ class DecodeProgram:
                                     nxt[:, None])
             self.token.copy_(nxt)
             self.step += 1
+
+    def _logits(self, phase: int) -> torch.Tensor:
+        """One decode step's logits over the static state."""
+        return decode_step(self.dparams, self.token, self.step, self.cache,
+                           self.cross, self.cfg, self.bias_rows, self.plan,
+                           cache_len=phase, tp_group=self.tp_group)
+
+    def _counters(self, steps: int) -> dict:
+        """A generation's counters beyond the loop's, for its span."""
+        return {}
 
     def _capture(self, phase: int) -> _Graph:
         """The body as a CUDA graph on the program's side stream (its
@@ -371,7 +402,7 @@ class DecodeProgram:
             steps, syncs, finished = 0, 0, False
             for phase in self.phases:
                 limit = self.n_gen if phase == self.phases[-1] else \
-                    min(self.n_gen, phase - self.unroll)
+                    min(self.n_gen, phase - self.first_pos - self.unroll)
                 while not finished and steps < limit:
                     self._iterate(phase, capture)
                     steps += self.unroll
@@ -390,7 +421,8 @@ class DecodeProgram:
             # nothing; every other captured body is one replay
             captured = len(self.graphs) - graphs
             sp.set(steps=steps, syncs=syncs, captures=captured,
-                   replays=syncs - captured if capture else 0)
+                   replays=syncs - captured if capture else 0,
+                   **self._counters(steps))
         return tokens, lengths
 
     @property
@@ -398,6 +430,84 @@ class DecodeProgram:
         """Seconds each phase's capture took (its eager first body
         excluded)."""
         return [g.capture_s for g in self.graphs.values()]
+
+
+class HybridDecodeProgram(DecodeProgram):
+    """The decode loop of the hybrid decoder (``models/granite_hybrid.py``)
+    for one key, over static state: per Mamba layer the SSM state and the
+    conv tail (fixed size a row), per attention layer a KV cache of the
+    prefix's and the generated positions, side by side in one captured
+    step.  The prologue is the prefill over the prefix (a ``prefill``
+    span, ``rows`` and ``positions``), which fills that state where the
+    T5 loop precomputes its cross-KV; the start token is then the first
+    captured step, at position ``enc_len``.  Attention reads a static
+    prefix of the cache in phases (256, 512, ... its length), as the plain
+    T5 routes do.  The MoE's routed tokens per expert and each layer
+    step's busiest expert are added up on the card inside the graph and
+    read back once a generation, after the loop, into the ``decode``
+    span's ``expert_tokens`` (per expert, over layers and steps),
+    ``expert_max_sum`` and ``moe_layer_steps``, beside ``ssm_layers``,
+    ``state_bytes_per_step`` (the SSM states and conv tails, read and
+    written once a step) and ``routed_per_layer_step`` (rows x top-k).
+    The program keeps no reference to the model between generations."""
+
+    def __init__(self, model: "_gh.GraniteHybrid", cfg: "_gh.HybridConfig",
+                 dcfg: DecodeConfig, batch: int, enc_len: int, device):
+        dev = torch.device(device)
+        self.cfg, self.dcfg, self.device = cfg, dcfg, dev
+        self.tp_group = None
+        self.captures = captures(model, dev)
+        self.unroll = max(1, int(dcfg.unroll))
+        self.n_gen = dcfg.max_length - 1
+        self.buf_len = 1 + -(-self.n_gen // self.unroll) * self.unroll
+        self.first_pos = enc_len
+        cache_len = enc_len + max(dcfg.max_length, self.buf_len - 1)
+        self.state = _gh.init_state(model, batch, cache_len, dev)
+        n, E = len(model.layers), cfg.num_local_experts
+        self.counters = (torch.zeros((n, E), dtype=torch.int64, device=dev),
+                         torch.zeros(n, dtype=torch.int64, device=dev))
+        self.fixed_counters = {
+            "ssm_layers": model.mamba_layers,
+            "state_bytes_per_step": 2 * self.state.nbytes_fixed(),
+            "routed_per_layer_step": batch * cfg.num_experts_per_tok}
+        self.suppress = suppression_index(dcfg, dev)
+        self.phases = [p for p in _phase_lengths(cache_len, True)
+                       if p > enc_len]
+        self._model = None  # the model, during a generation
+        self._loop_state(batch, dev)
+
+    def _run(self, model, encoder_hidden, generator, capture):
+        self._model = model
+        try:
+            return super()._run(model, encoder_hidden, generator, capture)
+        finally:
+            self._model = None
+
+    def _prologue(self, model, encoder_hidden, generator) -> None:
+        B, L = encoder_hidden.shape[:2]
+        with span("prefill", rows=B, positions=L):
+            _gh.prefill(model, encoder_hidden, self.state)
+        for c in self.counters:
+            c.zero_()
+        self._reset(generator)
+
+    def _logits(self, phase: int) -> torch.Tensor:
+        return _gh.decode_step(self._model, self.token,
+                               self.step + self.first_pos, self.state, phase,
+                               self.counters)
+
+    def _counters(self, steps: int) -> dict:
+        per_expert = self.counters[0].sum(0)
+        read = torch.cat([per_expert, self.counters[1].sum().view(1)])
+        read = read.tolist()  # the one read-back of a generation's counts
+        return {**self.fixed_counters, "expert_tokens": read[:-1],
+                "expert_max_sum": read[-1],
+                "moe_layer_steps": steps * self.counters[1].shape[0]}
+
+
+def _program_class(model) -> type:
+    return HybridDecodeProgram if isinstance(model, _gh.GraniteHybrid) \
+        else DecodeProgram
 
 
 _MAX_PROGRAMS = 8  # keys kept per model
@@ -420,8 +530,8 @@ def program_for(model: T5Model, encoder_hidden: torch.Tensor, cfg: T5Config,
         kept = decode_programs(model)
         prog = kept.pop(key, None)
         if prog is None:
-            prog = DecodeProgram(model, cfg, dcfg, B, L,
-                                 encoder_hidden.device)
+            prog = _program_class(model)(model, cfg, dcfg, B, L,
+                                         encoder_hidden.device)
         kept[key] = prog
         while len(kept) > _MAX_PROGRAMS:
             kept.popitem(last=False)
@@ -459,5 +569,6 @@ def generate_tokens_eager(
     """``generate_tokens``' plain twin: the same body, step by step from
     the host over a fresh program's state, nothing captured or kept."""
     B, L = encoder_hidden.shape[:2]
-    return DecodeProgram(model, cfg, dcfg, B, L, encoder_hidden.device).run(
+    return _program_class(model)(model, cfg, dcfg, B, L,
+                                 encoder_hidden.device).run(
         model, encoder_hidden, generator, capture=False)

@@ -34,6 +34,14 @@ summed over tp), and the tokens are gathered over dp, so every rank
 returns the whole result.  A tp shard's decode loop runs eagerly
 (``infer/decode.py::captures``), which ``last_decode_stats`` records.
 
+A config whose ``model.decoder`` block names ``type: granitemoehybrid``
+(``configs/granite4h_small_p1.yaml``) serves granite-4.0-h's hybrid
+decoder (``models/granite_hybrid.py``, random from the block's ``seed``)
+behind the same tower: the encoder's output is its prefix, and the decode
+loop (``infer/decode.py::HybridDecodeProgram``) prefills over it and
+emits the event ids greedily; ids past the MIDI vocabulary are no event
+(``ops/detokenize.py``).  Everything else here runs it unchanged.
+
 The decode loop of each batch is one captured program
 (``infer/decode.py``): the first batch of a bucket captures it, later ones
 replay it.  ``generate_batch`` splits the host's work from the card's, as
@@ -86,6 +94,11 @@ from .. import audio
 from ..config import ConfigNode, resolve_config
 from ..midi import MidiFile
 from ..models.convert import reference_checkpoint_to_params
+from ..models.granite_hybrid import (
+    GraniteHybrid,
+    HybridConfig,
+    hybrid_config_from,
+)
 from ..models.t5 import (
     T5Config,
     T5Model,
@@ -215,6 +228,19 @@ class Music2MIDI:
                           mesh)
         self.model = T5Model.from_state_dict(
             sd, self.t5_config, axis_group(mesh, "tp")).to(self.device)
+        # a config whose model.decoder block names another decoder serves
+        # it behind the tower (mel, T5 encoder, conditioning) in place of
+        # the T5 decoder: granitemoehybrid, random from the block's seed
+        self.decoder: Optional[GraniteHybrid] = None
+        self.hybrid_config: Optional[HybridConfig] = None
+        block = self.config.model.get("decoder")
+        if block is not None:
+            if mesh is not None:
+                raise ValueError("the hybrid decoder serves on one device: "
+                                 "no mesh")
+            self.hybrid_config = hybrid_config_from(self.config, dtype=dtype)
+            self.decoder = GraniteHybrid.from_seed(
+                self.hybrid_config, int(block.get("seed", 0)), self.device)
         self.decode_max_length = decode_max_length
         self.device_detokenize = device_detokenize
         self.num_conditioning = len(self.config.conditioning)
@@ -377,7 +403,22 @@ class Music2MIDI:
         serves the JAX engine's arithmetic (``_attention_int8``: ``p * vs``
         rounded to the compute dtype), in bf16 and, through its f32
         instance, in fp32.  ``pallas_cross`` moves the cross blocks of an
-        8-bit cache to the transposed-cross kernel."""
+        8-bit cache to the transposed-cross kernel.
+
+        The hybrid decoder keeps its KV in the compute dtype and its
+        projections unquantized: it takes none of the KV, weight or kernel
+        options (setting one raises), only the length, sampling,
+        suppression and unroll."""
+        if self.decoder is not None:
+            if self.int8_kv or self.kv_bits != 8 or self.int8_weights \
+                    or self.pallas_cross:
+                raise ValueError("the hybrid decoder takes no int8_kv, "
+                                 "kv_bits, int8_weights or pallas_cross")
+            return DecodeConfig(
+                max_length=self.decode_max_length,
+                temperature=self.temperature, top_k=self.top_k,
+                suppress_tokens=tuple(self.suppress_tokens),
+                unroll=int(self.unroll))
         quant = self.int8_kv
         if quant is None:
             quant = self.t5_config.dtype != torch.float32
@@ -503,7 +544,12 @@ class Music2MIDI:
     def _decode(self, encoder_hidden: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
         """Decode of the batch -> (tokens, lengths); ``generator`` draws
-        the samples when the engine samples."""
+        the samples when the engine samples.  The hybrid decoder takes the
+        encoder's output as its prefix."""
+        if self.decoder is not None:
+            return generate_tokens(self.decoder, encoder_hidden,
+                                   self.hybrid_config, self._dcfg(),
+                                   generator)
         return generate_tokens(self.model, encoder_hidden, self.t5_config,
                                self._dcfg(), generator)
 

@@ -51,6 +51,9 @@ _SIGNATURES = {
     "m2m_decode_attention_cross_t": [_c_void_p, _c_int, _c_void_p],
     # (pointer to the argument struct, phase 0-3, stream)
     "m2m_adafactor_phase": [_c_void_p, _c_int, _c_void_p],
+    # (state, x, dt, A, B, C, D, y, B rows, H, P, N, G, state is bf16,
+    # stream)
+    "m2m_ssm_state_update": [_c_void_p] * 8 + [_c_int] * 6 + [_c_void_p],
 }
 
 

@@ -17,6 +17,13 @@ semantics (pinned against ``tokenizer.MidiTokenizer`` in the tests):
 
 Output is fixed-shape: slot i of (B, L, 4) holds the note whose onset was
 emitted at token position i (velocity 80), with a validity mask.
+
+Ids at or past ``EVENT_VOCAB`` (the model of record's 400) are no event:
+they read as PAD, which changes no state, as the host tokenizer skips
+them.  A decoder whose head covers more ids (the hybrid's 100,352) may
+emit them.  Ids in [333, 400), outside the tokenizer's vocabulary but
+inside the model's, keep the reference tokenizer's reading as time
+tokens.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..tokenizer import EOS, OFFSET, ONSET
+from ..tokenizer import EOS, EVENT_VOCAB, OFFSET, ONSET, PAD
 
 PITCH_OFFSET = 5
 TIME_OFFSET = 133
@@ -55,6 +62,7 @@ def detokenize(tokens: torch.Tensor, start_idx: torch.Tensor
     (notes (B, L, 4) float32 [onset_idx, offset_idx, pitch, velocity],
      valid (B, L) bool).  Times are in 50 ms steps."""
     tokens = tokens.to(torch.int64)
+    tokens = torch.where(tokens >= EVENT_VOCAB, PAD, tokens)
     B, L = tokens.shape
     dev = tokens.device
     pos = torch.arange(L, device=dev).expand(B, L)

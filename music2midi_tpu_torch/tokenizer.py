@@ -15,7 +15,9 @@ Vocabulary layout (reference tokenizer.py:11-24, config.yaml:32-38):
   time tokens   [133, 333) — 200 steps of 50 ms = 10 s addressable,
   tokens >= 333 are unused by the encoder; the decoder state machine treats
   ANY token >= 133 as a time token (reference tokenizer.py:187-189), so an
-  invalid token t in [333, 400) acts as time index t-133 in [200, 267).
+  invalid token t in [333, 400) acts as time index t-133 in [200, 267);
+  ids >= ``EVENT_VOCAB`` (400, past the model of record's vocabulary: a
+  larger decoder's head may emit them) are no event, skipped as PAD is.
 
 Deliberately preserved reference quirks (needed for token/note parity):
   * An OFFSET event closes *every* open note of that pitch whose onset is
@@ -42,6 +44,7 @@ BOS = 1
 EOS = 2
 ONSET = 3
 OFFSET = 4
+EVENT_VOCAB = 400  # ids at or past it are no event
 
 
 class MidiTokenizer:
@@ -188,7 +191,7 @@ class MidiTokenizer:
             token = int(token)
             if token == EOS:
                 break
-            if token in (BOS, PAD):
+            if token in (BOS, PAD) or token >= EVENT_VOCAB:
                 continue
             if token == ONSET:
                 cur_on = 1

@@ -808,3 +808,115 @@ def test_adafactor_kernel_launches_per_chunk_past_max_leaves(card,
                 np.testing.assert_allclose(
                     kopt.state[a][key].cpu().numpy(), m.numpy(), rtol=1e-6,
                     atol=0, err_msg=f"leaf {i}: moment {key}")
+
+
+# --------------------------------------------------------------------- #
+# the hybrid decoder (models/granite_hybrid.py) and kernel 6             #
+# --------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("state_dtype", [torch.float32, torch.bfloat16])
+def test_ssm_state_update_kernel_matches_plain_at_published_widths(
+        card, state_dtype):
+    """Kernel 6 against its plain version on the card at granite-4.0-h's
+    widths (H 128, P 64, N 128, G 1) and 128 rows, 3 steps in place, each
+    from the same state: y and the state within 1e-5 relative of the
+    largest (float32: the two sum h * C in other orders and the kernel
+    fuses the update's multiply and add), a bfloat16 state within one of
+    its ulps (the two round float32 values an ulp of float32 apart), both
+    above a floor of float32 round-off where the update cancels."""
+    from music2midi_tpu_torch.ops import ssm_state_update as su
+
+    g = torch.Generator(device=card).manual_seed(3)
+    B, H, P, N = 128, 128, 64, 128
+
+    def normal(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=card) * scale
+
+    h0 = normal(B, H, P, N, scale=0.1).to(state_dtype)
+    A = -torch.exp(torch.rand(H, generator=g, device=card) * 2.7)
+    D = torch.ones(H, device=card)
+    hk, hp = h0.clone(), h0.clone()
+    before = su.ssm_state_update.launches
+    for _ in range(3):
+        hp.copy_(hk)
+        x, Bm, Cm = normal(B, H, P), normal(B, 1, N), normal(B, 1, N)
+        dt = torch.rand(B, H, generator=g, device=card) * 0.1
+        yk = su.ssm_state_update(hk, x, dt, A, Bm, Cm, D)
+        yp = su.ssm_state_update_plain(hp, x, dt, A, Bm, Cm, D)
+        torch.cuda.synchronize()
+        assert float((yk - yp).abs().max()) <= 1e-5 * float(yp.abs().max())
+    assert su.ssm_state_update.launches == before + 3
+    err = (hk.float() - hp.float()).abs()
+    floor = 1e-6 * float(hp.float().abs().max())  # float32 round-off
+    if state_dtype == torch.float32:
+        assert float(err.max()) <= 10 * floor
+    else:
+        ulp = torch.finfo(torch.bfloat16).eps * torch.maximum(
+            hk.float().abs(), hp.float().abs())
+        assert bool((err <= ulp + floor).all())
+
+
+def _hybrid_published(card):
+    """granite4h-small-p1's decoder (configs/granite4h_small_p1.yaml) at
+    its published widths, random from seed 7, bf16 on the card."""
+    from music2midi_tpu_torch.config import load_config
+    from music2midi_tpu_torch.models import granite_hybrid as gh
+
+    root = Path(__file__).resolve().parent.parent
+    cfg = gh.hybrid_config_from(
+        load_config(root / "configs" / "granite4h_small_p1.yaml"),
+        dtype=torch.bfloat16)
+    return gh.GraniteHybrid.from_seed(cfg, 7, card), cfg
+
+
+def test_hybrid_captured_step_matches_eager_at_published_widths(card):
+    """The hybrid's decode loop captured (two phases of its KV: 256 and
+    290 positions) against the same loop stepped eagerly from a fresh
+    program, at 128 rows behind a random 190-position prefix: tokens
+    equal; every routed token counted (rows x top-k a layer step); kernel
+    6 launched once a Mamba layer a step under replay."""
+    from music2midi_tpu_torch.infer.decode import (
+        DecodeConfig, generate_tokens, generate_tokens_eager, program_for)
+    from music2midi_tpu_torch.ops import ssm_state_update as su
+
+    model, cfg = _hybrid_published(card)
+    g = torch.Generator(device=card).manual_seed(11)
+    prefix = torch.randn(128, 190, 384, generator=g, device=card).bfloat16()
+    dcfg = DecodeConfig(max_length=100)
+    eager, eager_len = generate_tokens_eager(model, prefix, cfg, dcfg)
+    generate_tokens(model, prefix, cfg, dcfg)  # eager first bodies, capture
+    prog = program_for(model, prefix, cfg, dcfg)
+    assert sorted(prog.graphs) == [256, 290]
+    before = su.ssm_state_update.launches
+    got, got_len = generate_tokens(model, prefix, cfg, dcfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, eager) and torch.equal(got_len, eager_len)
+    assert su.ssm_state_update.launches - before == 9 * 99
+    per_layer = prog.counters[0].sum(1)
+    assert per_layer.tolist() == [128 * 10 * 99] * 10
+    assert bool((prog.counters[1] >= -(-128 * 10 // 72) * 99).all())
+
+
+def test_hybrid_replayed_steps_make_no_host_sync(card):
+    """Replays of the captured hybrid step under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host synchronisation
+    inside the steps (the loop's one read-back a step is outside them)."""
+    from music2midi_tpu_torch.infer.decode import (
+        DecodeConfig, generate_tokens, program_for)
+
+    model, cfg = _hybrid_published(card)
+    prefix = torch.zeros(64, 190, 384, device=card, dtype=torch.bfloat16)
+    dcfg = DecodeConfig(max_length=40)
+    generate_tokens(model, prefix, cfg, dcfg)
+    prog = program_for(model, prefix, cfg, dcfg)
+    (phase,) = prog.graphs
+    prog.step.zero_()  # the generation left it at the cache's end
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            prog._iterate(phase, True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
