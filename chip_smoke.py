@@ -73,7 +73,10 @@ and exits non-zero, and nothing is caught and passed over:
      decode stage with the attention kernels off and on (in turns) on
      the same encoder output, and the greedy tokens of the two routes
      (the kernel with ``round_pv``, and plain ``_attention_int8``), their
-     agreement at least ``C1_BAR`` (ROADMAP C1);
+     agreement at least ``C1_BAR`` (ROADMAP C1); and the captured loop's
+     tokens against the same loop with the step's glue as its ATen chains
+     (``parent_glue``: the decode loop before kernels 7-10), every token
+     equal;
   8. decode graph: the decode loop as one captured program
      (``infer/decode.py``) against its eager twin on the song's batch, in
      every route (bf16 serving through kernel 3, ``pallas_cross`` through
@@ -135,7 +138,9 @@ and exits non-zero, and nothing is caught and passed over:
      and restored bit-equal; the bf16 npz export served by
      ``Music2MIDI.from_npz`` through the calibration gate; and the train
      CLI (``python3 -m music2midi_tpu_torch.train``'s ``main``) for 4
-     bf16 steps from the model of record with ``--eval_in_train``;
+     bf16 steps from the model of record with ``--eval_in_train``
+     (kernel 5 4 a step, and the glue of its scoring's greedy decode on a
+     plain cache, kernels 7, 9 and 10 19, 6 and 1 a step; no other);
   14. entry points, in a temporary working directory, through what a user
      runs (the model of record, bf16 unless said): (a)
      ``music2midi_tpu_torch.serve_batch``'s ``main`` on 4 synthetic 60-s
@@ -211,6 +216,11 @@ and exits non-zero, and nothing is caught and passed over:
      128 x 64 x 128 state), three steps in place: y and the float32 state
      within ``SSM_BAR`` of their largest, a bfloat16 state within one of
      its ulps; timed with its plain version against the state's bytes;
+     kernels 7-10 (the T5 decode step's fused glue) at the serving shapes
+     against their plain twins on the same card inputs (8-10 bit for bit,
+     7's new x bit for bit and its norm at least ``NORM_BIT_SHARE``
+     bit-equal and within one bf16 ulp, in its add form and in its
+     embedding-gather form), each timed with its twin against its bytes;
      then the ``kernels`` JSON line.
 
 The last line of standard output is
@@ -228,6 +238,7 @@ prefetch pool), each joined or shut down before the phase ends.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -253,6 +264,9 @@ N_LAYERS = 6  # decoder layers: timed inputs taken in turn
 # H100 (0.971503, tools/song_agreement.py); tests/test_torch_gpu.py holds
 # the same bar
 C1_BAR = 0.96
+# kernel 7 vs its twin: the share of norm values bit-equal (the two may
+# sum the squares in another order; none more than one bf16 ulp off)
+NORM_BIT_SHARE = 0.999
 # Adafactor kernel vs plain: moments relative; a step's parameter change
 # relative, beside an ulp of the parameter (the sums run in other orders)
 ADAFACTOR_BARS = (1e-6, 1e-5)
@@ -1068,7 +1082,13 @@ def training_phase(smi: str, launches_of, check_midi, fixture_path: str,
                 f"CLI log {records}")
         require((out / "smoke" / "ckpt" / "step_00000004" / "state.pt")
                 .exists(), "CLI checkpoint step_00000004 missing")
-        require(n == only_adafactor(4 * 4), f"the CLI launched {n}")
+        # --eval_in_train scores by a greedy decode on a plain bf16 cache:
+        # the step's glue, 19 norms, 6 gelu_mul and 1 greedy_commit a step
+        steps = n["greedy_commit"]
+        require(steps > 0 and n == {
+            **only_adafactor(4 * 4), "add_rms_norm": 19 * steps,
+            "gelu_mul": 6 * steps, "greedy_commit": steps},
+            f"the CLI launched {n}")
         lines.append(
             f"cli: 4 bf16 steps in {cli_s:.3f} s (loader, validation, "
             f"checkpoints and eval_in_train included): train/loss "
@@ -2514,6 +2534,7 @@ def ssm_state_update_phase(smi: str) -> tuple:
 
 def _wrappers() -> list:
     from music2midi_tpu_torch.ops import decode_attention as da
+    from music2midi_tpu_torch.ops import decode_fused as df
     from music2midi_tpu_torch.ops import mel_cuda
     from music2midi_tpu_torch.ops import ssm_state_update as su
     from music2midi_tpu_torch.train import adafactor
@@ -2521,7 +2542,166 @@ def _wrappers() -> list:
     return [mel_cuda.log_mel_spectrogram_cuda,
             mel_cuda.log_mel_spectrogram_dft_cuda,
             da.decode_attention_int8, da.decode_attention_cross_t,
-            adafactor.adafactor_kernel, su.ssm_state_update]
+            adafactor.adafactor_kernel, su.ssm_state_update, *df.wrappers()]
+
+
+@contextlib.contextmanager
+def parent_glue():
+    """The T5 decode step's glue as ATen chains, as the loop ran it before
+    kernels 7-10: each of ``ops/decode_fused.py``'s wrappers replaced by
+    its plain twin (counted by none) while the block runs.  A program
+    made inside the block captures the chains."""
+    from unittest import mock
+
+    from music2midi_tpu_torch.ops import decode_fused as df
+
+    with contextlib.ExitStack() as stack:
+        for name in ("add_rms_norm", "embed_rms_norm", "quantize_write_kv",
+                     "gelu_mul", "greedy_commit"):
+            stack.enter_context(mock.patch.object(
+                df, name, getattr(df, name + "_plain")))
+        stack.enter_context(mock.patch.object(df, "wrappers", lambda: ()))
+        yield
+
+
+def decode_fused_phase(smi: str) -> tuple:
+    """Kernels 7-10 at the serving shapes (128 rows of the model of record
+    in bf16: d_model 384, 8 x 64 heads over a 1024-long int8 cache, d_ff
+    1152, 400 ids) against their plain twins (the ATen chains) on the same
+    card inputs: 8-10 bit for bit, 7's new x bit for bit and its norm at
+    least ``NORM_BIT_SHARE`` bit-equal, within one bf16 ulp, after the add
+    and after the gather from a (400, 384) table by int32 ids; each timed
+    with its twin, against the bytes it must move.  -> (the phase's info,
+    the kernels line's entries); raises on any failure."""
+    import torch
+
+    from music2midi_tpu_torch.ops import decode_fused as df
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    B, d, H, D, L, F, V = 128, 384, 8, 64, 1024, 1152, 400
+    bf16 = torch.bfloat16
+
+    def normal(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda")
+                * scale).to(bf16)
+
+    x, delta = normal(B, 1, d, scale=3.0), normal(B, 1, d)
+    w = torch.rand(d, generator=g, device="cuda") + 0.5
+    qkv = normal(B, 1, 3 * H * D, scale=4.0)
+    gate_lin = normal(B, 1, 2 * F, scale=3.0)
+    step = torch.tensor(517, dtype=torch.int32, device="cuda")
+
+    def cache():
+        return [(torch.zeros(B, H, L, D, dtype=torch.int8, device="cuda"),
+                 torch.ones(B, H, 1, L, device="cuda")) for _ in range(2)]
+
+    def loop_state():
+        done = torch.zeros(B, dtype=torch.bool, device="cuda")
+        done[::5] = True
+        return [done, torch.zeros(B, L + 1, dtype=torch.int32, device="cuda"),
+                torch.zeros(B, dtype=torch.int32, device="cuda"),
+                torch.tensor(40, dtype=torch.int32, device="cuda")]
+
+    logits = normal(B, V, scale=4.0)
+    logits[1, 9] = logits[1, 300] = 99.0  # a tie
+    # kernel 7's gather form (layer 0's ln1) against its twin: a (V, d)
+    # table, int32 ids as the loop holds them
+    table = normal(V, d, scale=2.0)
+    ids = torch.randint(0, V, (B,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    e0 = df.add_rms_norm.launches
+    ek, enk = df.embed_rms_norm(table, ids, w, 1e-6)
+    ep, enp = df.embed_rms_norm_plain(table, ids, w, 1e-6)
+    torch.cuda.synchronize()
+    e_ulps = ((enk.view(torch.int16).long() - enp.view(torch.int16).long())
+              .abs())
+    e_share = float((e_ulps == 0).float().mean())
+    require(df.add_rms_norm.launches == e0 + 1 and torch.equal(ek, ep)
+            and int(e_ulps.max()) <= 1 and e_share >= NORM_BIT_SHARE,
+            f"embed_rms_norm: x equal {torch.equal(ek, ep)}, norm "
+            f"{int(e_ulps.max())} ulps at most, {e_share:.6f} bit-equal, "
+            f"{df.add_rms_norm.launches - e0} launches")
+    # against the twins
+    n0 = [wr.launches for wr in df.wrappers()]
+    xk, xp = x.clone(), x.clone()
+    hk = df.add_rms_norm(xk, delta, w, 1e-6)
+    hp = df.add_rms_norm_plain(xp, delta, w, 1e-6)
+    ck, cp = cache(), cache()
+    fk = df.quantize_write_kv(qkv, *ck, step, 127.0)
+    fp = df.quantize_write_kv_plain(qkv, *cp, step, 127.0)
+    gk, gp = df.gelu_mul(gate_lin), df.gelu_mul_plain(gate_lin)
+    sk, sp = loop_state(), loop_state()
+    lk, lp = logits.clone(), logits.clone()
+    df.greedy_commit(lk, None, *sk, 0, 2)
+    df.greedy_commit_plain(lp, None, *sp, 0, 2)
+    torch.cuda.synchronize()
+    ulps = ((hk.view(torch.int16).long() - hp.view(torch.int16).long())
+            .abs())
+    share = float((ulps == 0).float().mean())
+    require(torch.equal(xk, xp) and int(ulps.max()) <= 1
+            and share >= NORM_BIT_SHARE,
+            f"add_rms_norm: x equal {torch.equal(xk, xp)}, norm "
+            f"{int(ulps.max())} ulps at most, {share:.6f} bit-equal")
+    require(all(torch.equal(a, b) for pa, pb in zip(fk, fp)
+                for a, b in zip(pa, pb))
+            and all(torch.equal(a, b) for ea, eb in zip(ck, cp)
+                    for a, b in zip(ea, eb)),
+            "quantize_write_kv: the fresh rows or the cache differ from "
+            "the twin's")
+    require(torch.equal(gk, gp), "gelu_mul differs from the twin")
+    require(torch.equal(lk, lp) and all(torch.equal(a, b)
+                                        for a, b in zip(sk, sp)),
+            "greedy_commit differs from the twin")
+    # timed at the serving shapes; bytes each must move (bf16 unless said)
+    iters = 200
+    runs = [
+        ("add_rms_norm", lambda: df.add_rms_norm(xk, delta, w, 1e-6),
+         lambda: df.add_rms_norm_plain(xp, delta, w, 1e-6),
+         2 * (2 * B * d * 2) + 4 * d,  # x, delta read; x, out written
+         f"x, delta ({B}, 1, {d}) bf16, w f32"),
+        ("quantize_write_kv",
+         lambda: df.quantize_write_kv(qkv, *ck, step, 127.0),
+         lambda: df.quantize_write_kv_plain(qkv, *cp, step, 127.0),
+         2 * B * H * D * 2 + 2 * (2 * B * H * D + 2 * B * H * 4),
+         f"qkv ({B}, 1, {3 * H * D}) bf16 -> int8 cache ({B}, {H}, {L}, "
+         f"{D}) and fresh rows"),
+        ("gelu_mul", lambda: df.gelu_mul(gate_lin),
+         lambda: df.gelu_mul_plain(gate_lin), B * 3 * F * 2,
+         f"gate | lin ({B}, 1, {2 * F}) bf16"),
+        ("greedy_commit", lambda: df.greedy_commit(lk, None, *sk, 0, 2),
+         lambda: df.greedy_commit_plain(lp, None, *sp, 0, 2),
+         B * V * 2 + B * (1 + 4 + 4 + 4),
+         f"logits ({B}, {V}) bf16, done, tokens ({B}, {L + 1})"),
+    ]
+    entries, parts = [], []
+    for (name, kern, plain, nbytes, shape), wr, n_before in zip(
+            runs, df.wrappers(), n0):
+        ms, host_ms = device_ms(kern, iters)
+        plain_ms, plain_host_ms = device_ms(plain, 20)
+        launches = wr.launches - n_before
+        want = 4 + 2 * iters  # the check, 3 warm-ups, two timed loops
+        require(launches == want,
+                f"{name}: {launches} launches for {want} calls")
+        bound_ms, bound_by, _, _ = _bound(nbytes, 0.0)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "music2midi_tpu_torch/csrc/decode_fused.cu",
+            "replaces": None, "launches": launches,
+            "max_rel_err": 0.0 if name != "add_rms_norm" else None,
+            "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "plain_host_ms": plain_host_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "shape": shape})
+        parts.append(f"{name} ({shape}): kernel ms={ms:.5f} host-inclusive="
+                     f"{host_ms:.5f}; plain ms={plain_ms:.5f} host-inclusive"
+                     f"={plain_host_ms:.5f}; bound_ms={bound_ms:.6f} "
+                     f"({bound_by}: {nbytes} B); launches={launches}")
+    info = ("kernels 7-10 against their twins: add_rms_norm x bit-equal, "
+            f"norm {share:.6f} bit-equal, {int(ulps.max())} ulp at most; "
+            f"embed_rms_norm x bit-equal, norm {e_share:.6f} bit-equal, "
+            f"{int(e_ulps.max())} ulp at most; "
+            "quantize_write_kv, gelu_mul, greedy_commit bit for bit; "
+            + "; ".join(parts) + f" [{smi}]")
+    return info, entries
 
 
 def main() -> int:
@@ -2538,6 +2718,7 @@ def main() -> int:
     from music2midi_tpu_torch.calibration import check_midi, render_fixture
     from music2midi_tpu_torch.infer import Music2MIDI
     from music2midi_tpu_torch.infer.decode import (
+        DecodeProgram,
         decode_programs,
         generate_tokens,
     )
@@ -2798,6 +2979,27 @@ def main() -> int:
         require(agree_n / agree_d >= C1_BAR,
                 f"kernel route vs _attention_int8 {agree_n / agree_d} < "
                 f"the C1 bar {C1_BAR}")
+        # the serving loop (kernel route, captured) against the same loop
+        # with the step's glue as ATen chains, captured afresh: the loop
+        # before kernels 7-10, on the same encoder output
+        serve_dcfg = engine._dcfg()._replace(pallas_attention=True)
+        with parent_glue():
+            parent = DecodeProgram(engine.model, engine.t5_config,
+                                   serve_dcfg, enc.shape[0], enc.shape[1],
+                                   enc.device)
+            parent.run(engine.model, enc)  # its capture
+            t_par, l_par = (t.cpu().numpy()
+                            for t in parent.run(engine.model, enc))
+            del parent
+        par_n = par_d = par_rows = 0
+        for r in range(stats[0]["real_rows"]):
+            m = int(max(l_par[r], l_on[r]))
+            same = int((t_par[r, :m] == t_on[r, :m]).sum())
+            par_n, par_d, par_rows = par_n + same, par_d + m, \
+                par_rows + (same == m)
+        require(par_n == par_d,
+                f"the fused loop vs the loop of ATen glue: {par_n} of "
+                f"{par_d} tokens equal")
         ph.info = (f"p50_song_latency_s={p50:.4f} "
                    f"songs_per_min={60.0 / p50:.3f} runs_s={times} "
                    f"launches={song_launches} "
@@ -2813,7 +3015,10 @@ def main() -> int:
                    f"steps_off={int(l_off.max()) - 1} "
                    f"steps_on={int(l_on.max()) - 1} "
                    f"greedy_token_agreement_kernel_route_vs_attention_int8="
-                   f"{agree_n / agree_d:.6f} ({agree_n}/{agree_d}) [{smi}]")
+                   f"{agree_n / agree_d:.6f} ({agree_n}/{agree_d}) "
+                   f"greedy_token_agreement_with_the_aten_glue_loop="
+                   f"{par_n / par_d:.6f} ({par_n}/{par_d}; rows equal "
+                   f"{par_rows}/{stats[0]['real_rows']}) [{smi}]")
 
     with Phase("decode_graph") as ph:
         ph.info = decode_graph_phase(smi, launches_of, engine, batch, cond)
@@ -2991,10 +3196,12 @@ def main() -> int:
 
     with Phase("kernels") as ph:
         ph.info, ssm_entry = ssm_state_update_phase(smi)
+        fused_info, fused_entries = decode_fused_phase(smi)
+        ph.info += "; " + fused_info
         print(json.dumps({"kernels": [
             mel_entries["log_mel_fft"], mel_entries["log_mel_dft"],
-            int8_entry, cross_t_entry, adafactor_entry, ssm_entry]}),
-            flush=True)
+            int8_entry, cross_t_entry, adafactor_entry, ssm_entry,
+            *fused_entries]}), flush=True)
 
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

@@ -20,7 +20,7 @@ generated, with one read-back of ``done`` a body.  On a CUDA device the
 body is a CUDA graph: the first body of a phase runs eagerly (it warms
 up what the capture records), the next is captured on a side stream, and
 every later one, in this generation and the next, replays the graph, so
-that a body costs the host one graph launch where it cost ~450 kernel
+that a body costs the host one graph launch where it cost ~85 kernel
 launches.  A capture that fails raises; nothing falls back to the eager
 loop.  On the CPU the same body runs eagerly over the same static state.
 
@@ -43,7 +43,13 @@ each kernel wrapper its graph holds, and a replay adds them.  A
 generation is one ``decode`` span (``profiling.span``, recorded while a
 profiler or ``profiling.recording()`` is on) with its ``steps``, its
 ``syncs`` (host reads of the device: one ``done`` check a body), its
-graph ``replays`` and the ``captures`` made inside it.
+graph ``replays``, the ``captures`` made inside it and its
+``fused_launches``, the launches of the step's fused glue (kernels 7-10,
+``ops/decode_fused.py``; counted over all threads while it runs).
+
+A greedy step selects its tokens and advances the loop's state in one
+kernel (``greedy_commit``); sampling keeps its chain of ATen ops, and the
+hybrid decoder's loop keeps that chain for every step.
 
 A program's state is one generation's at a time: ``run`` holds the
 program's lock from the prologue to the copy of its output, so that two
@@ -109,6 +115,7 @@ from ..models.t5 import (
     transpose_cross_kv,
 )
 from ..ops import decode_attention as _da
+from ..ops import decode_fused as _df
 from ..ops import ssm_state_update as _ssu
 from ..profiling import span
 
@@ -203,7 +210,12 @@ class _Graph(NamedTuple):
 def _counted() -> tuple:
     """The kernel wrappers whose launch counts a graph carries."""
     return (_da.decode_attention_int8, _da.decode_attention_cross_t,
-            _ssu.ssm_state_update)
+            _ssu.ssm_state_update, *_df.wrappers())
+
+
+def _fused_launches() -> int:
+    """Kernels 7-10's launches so far (``ops/decode_fused.py``)."""
+    return sum(w.launches for w in _df.wrappers())
 
 
 def captures(model: T5Model, device) -> bool:
@@ -309,16 +321,29 @@ class DecodeProgram:
     def _body(self, phase: int) -> None:
         """``unroll`` decode steps over the static state, in place; the
         keys the plain routes read are the first ``phase``."""
-        cfg, dcfg = self.cfg, self.dcfg
         for _ in range(self.unroll):
-            logits = self._logits(phase)
-            nxt = _select_next(logits, dcfg, self.generator, self.suppress)
-            nxt = torch.where(self.done, cfg.pad_token_id, nxt)
-            self.done |= nxt == cfg.eos_token_id
-            self.tokens.index_copy_(1, (self.step + 1).view(1).long(),
-                                    nxt[:, None])
-            self.token.copy_(nxt)
-            self.step += 1
+            self._commit(self._logits(phase))
+
+    def _commit(self, logits: torch.Tensor) -> None:
+        """Select the next tokens from a step's logits and advance the
+        loop's state: kernel 10 (``greedy_commit``) when greedy."""
+        if self.dcfg.temperature != 0.0:
+            return self._commit_chain(logits)
+        _df.greedy_commit(logits, self.suppress, self.done, self.tokens,
+                          self.token, self.step, self.cfg.pad_token_id,
+                          self.cfg.eos_token_id)
+
+    def _commit_chain(self, logits: torch.Tensor) -> None:
+        """``_commit`` as a chain of ATen ops, for sampling (and every step
+        of the hybrid decoder)."""
+        cfg = self.cfg
+        nxt = _select_next(logits, self.dcfg, self.generator, self.suppress)
+        nxt = torch.where(self.done, cfg.pad_token_id, nxt)
+        self.done |= nxt == cfg.eos_token_id
+        self.tokens.index_copy_(1, (self.step + 1).view(1).long(),
+                                nxt[:, None])
+        self.token.copy_(nxt)
+        self.step += 1
 
     def _logits(self, phase: int) -> torch.Tensor:
         """One decode step's logits over the static state."""
@@ -394,6 +419,7 @@ class DecodeProgram:
              generator: Optional[torch.Generator], capture: bool
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         with span("decode") as sp:
+            fused = _fused_launches()
             self._prologue(model, encoder_hidden, generator)
             graphs = len(self.graphs)
             # as the JAX loop's phases: a phase runs while a whole body
@@ -422,6 +448,7 @@ class DecodeProgram:
             captured = len(self.graphs) - graphs
             sp.set(steps=steps, syncs=syncs, captures=captured,
                    replays=syncs - captured if capture else 0,
+                   fused_launches=_fused_launches() - fused,
                    **self._counters(steps))
         return tokens, lengths
 
@@ -495,6 +522,8 @@ class HybridDecodeProgram(DecodeProgram):
         return _gh.decode_step(self._model, self.token,
                                self.step + self.first_pos, self.state, phase,
                                self.counters)
+
+    _commit = DecodeProgram._commit_chain
 
     def _counters(self, steps: int) -> dict:
         per_expert = self.counters[0].sum(0)

@@ -68,11 +68,13 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..ops import decode_fused as _df
 from ..ops.decode_attention import (
     Int8AttentionPlan,
     decode_attention_cross_t,
     transpose_cross_entry,
 )
+from ..ops.decode_fused import gelu_new, rms_norm
 from ..parallel.mesh import copy_to_tp_region, reduce_from_tp_region
 
 
@@ -278,29 +280,8 @@ def init_params(seed: int, cfg: T5Config,
 
 
 # --------------------------------------------------------------------- #
-# primitives                                                             #
+# primitives (T5's ``rms_norm`` and ``gelu_new``: ops/decode_fused.py)    #
 # --------------------------------------------------------------------- #
-
-
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    """T5LayerNorm: no mean subtraction, variance in fp32, cast to the
-    input dtype before the weight multiply."""
-    xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (weight * y.to(x.dtype)).to(x.dtype)
-
-
-_GELU_C = float(np.sqrt(2.0 / np.pi).astype(np.float32))
-
-
-def gelu_new(x: torch.Tensor) -> torch.Tensor:
-    """HF "gelu_new" (tanh approximation).  As in the JAX package, the
-    polynomial runs in the input dtype and the tanh and the final product
-    in fp32 (the float32 constant promotes there)."""
-    x3 = x * x * x
-    inner = (x + 0.044715 * x3).float() * _GELU_C
-    return (0.5 * x).float() * (1.0 + torch.tanh(inner))
 
 
 def relative_position_bucket(
@@ -646,12 +627,7 @@ def _quantize_kv(x: torch.Tensor,
     unpacked in int8)."""
     if bits not in _KV_LEVELS:
         raise ValueError(f"_quantize_kv: bits must be 8 or 4, got {bits}")
-    levels = _KV_LEVELS[bits]
-    xf = x.float()
-    amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(amax, min=1e-8) / levels
-    q = torch.clamp(torch.round(xf / scale), -levels, levels)
-    return q.to(torch.int8), scale.transpose(-1, -2)
+    return _df.quantize_rows(x, _KV_LEVELS[bits])
 
 
 def _attention_int8(
@@ -822,23 +798,6 @@ def int8_attention_plan(kv_cache: list, cross_kv: CrossKV,
                              round_pv=True, dtype=dtype)
 
 
-def _write_kv(entry, new: torch.Tensor, pos: torch.Tensor, bits: int):
-    """Write this step's (B, H, 1, D) K or V row into a cache entry, in
-    place, at the position ``pos`` holds (a (1,) int64 tensor on the
-    cache's device, so that the write follows a step kept on the device):
-    a plain buffer, or an int8 (values, scales) pair (the row is quantized
-    with its own per-(B, H) scale, ``bits`` wide).  -> the quantized row
-    and its scale for an int8 entry, else None."""
-    if isinstance(entry, tuple):
-        vals, scales = entry
-        q8, s = _quantize_kv(new, bits)
-        vals.index_copy_(2, pos, q8)
-        scales.index_copy_(3, pos, s)
-        return q8, s
-    entry.index_copy_(2, pos, new)
-    return None
-
-
 def _prefix(entry, n: int):
     """The first n cached positions of an entry (a view)."""
     if isinstance(entry, tuple):
@@ -871,7 +830,7 @@ def decode_step(
 
     ``step`` lives on the device (a host int is written to a device
     scalar first), and nothing in the step reads it back: the cache
-    write is an ``index_copy_`` at the step, the plain attention routes
+    write goes to the position the step holds, the plain attention routes
     read a prefix of static length ``cache_len`` (default: the whole
     cache; it must exceed ``step``) with the keys after the step masked
     to -1e9, which underflows to a probability of exactly 0, and the
@@ -899,11 +858,10 @@ def decode_step(
     (``_proj_row``): three all-reduces a layer."""
     dt = cfg.dtype
     H, D = cfg.num_heads, cfg.d_kv
+    eps = cfg.layer_norm_epsilon
     dev = token.device
     if not isinstance(step, torch.Tensor):
         step = torch.full((), int(step), dtype=torch.int32, device=dev)
-    pos = step.view(1).long()
-    x = dparams["embedding"][token][:, None]  # (B, 1, d_model)
     int8_self = isinstance(kv_cache[0][0], tuple)
     if plan is None or not int8_self:
         # the plain routes: keys 0..c-1, those after the step masked, the
@@ -914,23 +872,34 @@ def decode_step(
         cols = (keys + (L - 1) - step).clamp_(max=L - 1)
         bias_row = bias_rows.index_select(1, cols)[None, :, None, :]
         mask = (keys <= step)[None, None, None, :]
-    for i, layer in enumerate(dparams["layers"]):
-        h = rms_norm(x, layer["ln1"], cfg.layer_norm_epsilon)
+    layers = dparams["layers"]
+    # x: the residual stream (B, 1, d_model), updated in place
+    x, h = _df.embed_rms_norm(dparams["embedding"], token, layers[0]["ln1"],
+                              eps)
+    for i, layer in enumerate(layers):
+        if i:
+            h = _df.add_rms_norm(x, delta, layer["ln1"], eps)
         qkv = _proj(h, layer["sa_qkv"], dt)
-        q, k_new, v_new = (_split_heads(p, H, D) for p in qkv.chunk(3, dim=-1))
+        q = _split_heads(qkv[..., :H * D], H, D)
         k_entry, v_entry = kv_cache[i]
-        k_newq = _write_kv(k_entry, k_new, pos, kv_cache.bits)
-        v_newq = _write_kv(v_entry, v_new, pos, kv_cache.bits)
-        if k_newq is not None and plan is not None:
+        if int8_self:
+            k_newq, v_newq = _df.quantize_write_kv(
+                qkv, k_entry, v_entry, step, _KV_LEVELS[kv_cache.bits])
+        else:
+            pos = step.view(1).long()
+            for entry, new in zip(kv_cache[i], qkv.chunk(3, dim=-1)[1:]):
+                entry.index_copy_(2, pos, _split_heads(new, H, D))
+        if int8_self and plan is not None:
             h = plan.causal(i, q, k_newq, v_newq, step)
-        elif k_newq is not None:
+        elif int8_self:
             h = _attention_int8(q, _prefix(k_entry, c), _prefix(v_entry, c),
                                 bias_row, mask, dt)
         else:
             h = attention(q, _prefix(k_entry, c), _prefix(v_entry, c),
                           bias_row, mask, dt)
-        x = x + _proj_row(_merge_heads(h), layer["sa_o"], dt, tp_group)
-        h = rms_norm(x, layer["ln2"], cfg.layer_norm_epsilon)
+        h = _df.add_rms_norm(
+            x, _proj_row(_merge_heads(h), layer["sa_o"], dt, tp_group),
+            layer["ln2"], eps)
         q = _split_heads(_proj(h, layer["ca_q"], dt), H, D)
         ck, cv = cross_kv.layers[i]
         if cross_kv.transposed:
@@ -941,10 +910,10 @@ def decode_step(
             a = _attention_int8(q, ck, cv, None, None, dt)
         else:
             a = attention(q, ck, cv, None, None, dt)
-        x = x + _proj_row(_merge_heads(a), layer["ca_o"], dt, tp_group)
-        h = rms_norm(x, layer["ln3"], cfg.layer_norm_epsilon)
-        gate, lin = _proj(h, layer["mlp_wi"], dt).chunk(2, dim=-1)
-        x = x + _proj_row(gelu_new(gate) * lin, layer["mlp_wo"], dt,
-                          tp_group)
-    x = rms_norm(x, dparams["final_ln"], cfg.layer_norm_epsilon)
+        h = _df.add_rms_norm(
+            x, _proj_row(_merge_heads(a), layer["ca_o"], dt, tp_group),
+            layer["ln3"], eps)
+        delta = _proj_row(_df.gelu_mul(_proj(h, layer["mlp_wi"], dt)),
+                          layer["mlp_wo"], dt, tp_group)
+    x = _df.add_rms_norm(x, delta, dparams["final_ln"], eps)
     return _proj(x, dparams["lm_head"], dt)[:, 0, :]

@@ -54,6 +54,21 @@ _SIGNATURES = {
     # (state, x, dt, A, B, C, D, y, B rows, H, P, N, G, state is bf16,
     # stream)
     "m2m_ssm_state_update": [_c_void_p] * 8 + [_c_int] * 6 + [_c_void_p],
+    # (x, delta, table, token, w, out, rows, d, vocab, reduce width, bf16,
+    # w bf16, eps, stream)
+    "m2m_add_rms_norm": [_c_void_p] * 6 + [_c_int] * 6 + [_c_float,
+                                                          _c_void_p],
+    # (qkv, k values, k scales, v values, v scales, the fresh k, its scale,
+    # the fresh v, its scale, step, rows, H, D, cache length, bf16, levels,
+    # stream)
+    "m2m_quantize_write_kv": [_c_void_p] * 10 + [_c_int] * 5 + [_c_float,
+                                                               _c_void_p],
+    # (gate | lin, out, rows, F, bf16, stream)
+    "m2m_gelu_mul": [_c_void_p] * 2 + [_c_int] * 3 + [_c_void_p],
+    # (logits, suppress, n suppress, done, tokens, token, step, rows, V,
+    # tokens' row length, PAD, EOS, bf16, stream)
+    "m2m_greedy_commit": [_c_void_p] * 2 + [_c_int] + [_c_void_p] * 4
+    + [_c_int] * 6 + [_c_void_p],
 }
 
 

@@ -407,9 +407,11 @@ def test_train_step_on_card_matches_cpu(card):
     parameters and batch, no TF32 (PyTorch's default): loss within 1e-4
     relative and the parameter updates' cosine >= 0.999, the bars of
     ``chip_smoke.py``'s training phase.  A fixed lr of 1e-2: the relative
-    step's first lr moves a parameter by a few ulps only."""
+    step's first lr moves a parameter by a few ulps only.  The decode
+    step's kernels 7-10 never launch."""
     from music2midi_tpu_torch.config import default_config
     from music2midi_tpu_torch.models.t5 import t5_config_from
+    from music2midi_tpu_torch.ops import decode_fused as df
     from music2midi_tpu_torch.ops.mel import log_mel_config_from
     from music2midi_tpu_torch.train import Adafactor, Batch, make_train_step
     from music2midi_tpu_torch.train.loop import TrainState, trainable_model
@@ -428,6 +430,7 @@ def test_train_step_on_card_matches_cpu(card):
     batch = Batch((rng.normal(size=(4, 66150)) * 0.1).astype(np.float32),
                   labels, np.array([[0, 0], [1, 2], [5, 1], [3, 0]]))
     loss, update = {}, {}
+    fused = [w.launches for w in df.wrappers()]
     for dev in (card, torch.device("cpu")):
         model = trainable_model(sd, cfg, dev)
         state = TrainState(model, Adafactor(list(model.parameters()),
@@ -438,6 +441,7 @@ def test_train_step_on_card_matches_cpu(card):
         loss[dev.type] = float(l)
         update[dev.type] = torch.cat([p.detach().flatten().double().cpu()
                                       for p in model.parameters()]) - before
+    assert [w.launches for w in df.wrappers()] == fused
     assert np.isfinite(loss["cuda"])
     assert abs(loss["cuda"] - loss["cpu"]) <= 1e-4 * abs(loss["cpu"])
     cos = torch.nn.functional.cosine_similarity(update["cuda"],
@@ -875,15 +879,18 @@ def test_hybrid_captured_step_matches_eager_at_published_widths(card):
     290 positions) against the same loop stepped eagerly from a fresh
     program, at 128 rows behind a random 190-position prefix: tokens
     equal; every routed token counted (rows x top-k a layer step); kernel
-    6 launched once a Mamba layer a step under replay."""
+    6 launched once a Mamba layer a step under replay; the T5 step's
+    kernels 7-10 never."""
     from music2midi_tpu_torch.infer.decode import (
         DecodeConfig, generate_tokens, generate_tokens_eager, program_for)
+    from music2midi_tpu_torch.ops import decode_fused as df
     from music2midi_tpu_torch.ops import ssm_state_update as su
 
     model, cfg = _hybrid_published(card)
     g = torch.Generator(device=card).manual_seed(11)
     prefix = torch.randn(128, 190, 384, generator=g, device=card).bfloat16()
     dcfg = DecodeConfig(max_length=100)
+    fused = [w.launches for w in df.wrappers()]
     eager, eager_len = generate_tokens_eager(model, prefix, cfg, dcfg)
     generate_tokens(model, prefix, cfg, dcfg)  # eager first bodies, capture
     prog = program_for(model, prefix, cfg, dcfg)
@@ -893,6 +900,7 @@ def test_hybrid_captured_step_matches_eager_at_published_widths(card):
     torch.cuda.synchronize()
     assert torch.equal(got, eager) and torch.equal(got_len, eager_len)
     assert su.ssm_state_update.launches - before == 9 * 99
+    assert [w.launches for w in df.wrappers()] == fused
     per_layer = prog.counters[0].sum(1)
     assert per_layer.tolist() == [128 * 10 * 99] * 10
     assert bool((prog.counters[1] >= -(-128 * 10 // 72) * 99).all())
@@ -920,3 +928,234 @@ def test_hybrid_replayed_steps_make_no_host_sync(card):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+# --------------------------------------------------------------------- #
+# kernels 7-10: the decode step's fused glue (csrc/decode_fused.cu)      #
+# --------------------------------------------------------------------- #
+
+# the serving shapes: 128 rows of the model of record
+_B, _DM, _H, _DK, _L, _FF, _V = 128, 384, 8, 64, 1024, 1152, 400
+_DT = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _randn(card, seed, *shape, dtype=torch.bfloat16, scale=1.0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return (torch.randn(*shape, generator=g, device=card) * scale).to(dtype)
+
+
+def _ulps(a, b):
+    """Each pair's distance in ulps of their dtype (bf16 or f32), read off
+    the bit patterns; a pair of opposite signs counts its two distances
+    from zero."""
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[a.dtype]
+    ia = a.contiguous().view(ints).long()
+    ib = b.contiguous().view(ints).long()
+    sign = 1 << (8 * a.element_size() - 1)
+    mag_a = torch.where(ia < 0, ia + sign, ia)
+    mag_b = torch.where(ib < 0, ib + sign, ib)
+    same = (ia < 0) == (ib < 0)
+    return torch.where(same, (mag_a - mag_b).abs(), mag_a + mag_b)
+
+
+@pytest.mark.parametrize("dtype,w_dtype", [("bfloat16", "float32"),
+                                           ("bfloat16", "bfloat16"),
+                                           ("float32", "float32")])
+@pytest.mark.parametrize("rows,d", [(128, 384), (8, 384), (1, 384),
+                                    (128, 64), (4, 16)])
+def test_add_rms_norm_kernel_matches_plain_on_card(card, rows, d, dtype,
+                                                   w_dtype):
+    """Kernel 7 against its twin (ATen's chain) on the card: the new x
+    bit for bit; the norm bit-equal on at least 99.9 % of its values and
+    never more than one ulp of its dtype off (the two may sum the squares
+    in another order); the same through the embedding gather."""
+    from music2midi_tpu_torch.ops import decode_fused as df
+
+    dt = _DT[dtype]
+    x = _randn(card, 1, rows, 1, d, dtype=dt, scale=3.0)
+    delta = _randn(card, 2, rows, 1, d, dtype=dt)
+    w = (_randn(card, 3, d, dtype=torch.float32) * 0.2 + 1.0).to(_DT[w_dtype])
+    xk, xp = x.clone(), x.clone()
+    before = df.add_rms_norm.launches
+    hk = df.add_rms_norm(xk, delta, w, 1e-6)
+    hp = df.add_rms_norm_plain(xp, delta, w, 1e-6)
+    table = _randn(card, 4, _V, d, dtype=dt, scale=2.0)
+    token = torch.randint(0, _V, (rows,), device=card, dtype=torch.int32)
+    ek, gk = df.embed_rms_norm(table, token, w, 1e-6)
+    ep, gp = df.embed_rms_norm_plain(table, token.long(), w, 1e-6)
+    torch.cuda.synchronize()
+    assert df.add_rms_norm.launches == before + 2
+    assert torch.equal(xk, xp) and torch.equal(ek, ep)
+    for got, want in ((hk, hp), (gk, gp)):
+        ulps = _ulps(got, want)
+        assert int(ulps.max()) <= 1, int(ulps.max())
+        assert float((ulps == 0).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_gelu_mul_kernel_equals_plain_on_card(card, dtype):
+    """Kernel 9 against ATen's ``gelu_new(gate) * lin`` chain on the card,
+    bit for bit, over values from 1e-6 to 40 in size."""
+    from music2midi_tpu_torch.ops import decode_fused as df
+
+    gl = _randn(card, 5, _B, 1, 2 * _FF, dtype=_DT[dtype], scale=3.0)
+    gl[:4] *= 1e-5
+    gl[4:8] *= 12.0
+    before = df.gelu_mul.launches
+    got = df.gelu_mul(gl)
+    want = df.gelu_mul_plain(gl)
+    torch.cuda.synchronize()
+    assert df.gelu_mul.launches == before + 1
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("step", [0, 517, 1023])
+@pytest.mark.parametrize("levels", [127.0, 7.0])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_quantize_write_kv_kernel_equals_plain_on_card(card, dtype, levels,
+                                                       step):
+    """Kernel 8 against the twin's quantize and ``index_copy_`` on the
+    card: the fresh rows, their scales and both whole cache entries bit
+    for bit (a zero row keeps the 1e-8 floor); a step off the cache
+    writes nothing."""
+    from music2midi_tpu_torch.ops import decode_fused as df
+
+    dt = _DT[dtype]
+    qkv = _randn(card, 6, _B, 1, 3 * _H * _DK, dtype=dt, scale=4.0)
+    qkv[3, 0, _H * _DK:_H * _DK + _DK] = 0.0
+
+    def entries():
+        g = torch.Generator(device=card).manual_seed(7)
+        return [(torch.randint(-127, 128, (_B, _H, _L, _DK), generator=g,
+                               device=card, dtype=torch.int8),
+                 torch.rand(_B, _H, 1, _L, generator=g, device=card))
+                for _ in range(2)]
+
+    ours, theirs = entries(), entries()
+    s = torch.tensor(step, dtype=torch.int32, device=card)
+    before = df.quantize_write_kv.launches
+    got = df.quantize_write_kv(qkv, *ours, s, levels)
+    want = df.quantize_write_kv_plain(qkv, *theirs, s, levels)
+    torch.cuda.synchronize()
+    assert df.quantize_write_kv.launches == before + 1
+    for (q8, sc), (wq8, wsc) in zip(got, want):
+        assert torch.equal(q8, wq8) and torch.equal(sc, wsc)
+    for a, b in zip(ours, theirs):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    df.quantize_write_kv(qkv, *ours, torch.tensor(
+        _L, dtype=torch.int32, device=card), levels)
+    torch.cuda.synchronize()
+    for a, b in zip(ours, theirs):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("suppress", [(), (2, 17, 399)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_greedy_commit_kernel_equals_plain_on_card(card, dtype, suppress):
+    """Kernel 10 against the twin's selection chain over five steps at 128
+    rows and 400 ids: ties (the first wins), a NaN (it wins), EOS, rows
+    already done, the suppressed ids; the logits, done, tokens, token and
+    step bit for bit."""
+    from music2midi_tpu_torch.ops import decode_fused as df
+
+    dt = _DT[dtype]
+    sup = torch.tensor(suppress, dtype=torch.long, device=card) \
+        if suppress else None
+
+    def state():
+        done = torch.zeros(_B, dtype=torch.bool, device=card)
+        done[::7] = True
+        return [done, torch.zeros(_B, 1 + _L, dtype=torch.int32, device=card),
+                torch.zeros(_B, dtype=torch.int32, device=card),
+                torch.tensor(40, dtype=torch.int32, device=card)]
+
+    ours, theirs = state(), state()
+    before = df.greedy_commit.launches
+    for k in range(5):
+        logits = _randn(card, 10 + k, _B, _V, dtype=dt, scale=4.0)
+        logits[1, 5] = logits[1, 300] = 99.0  # a tie
+        logits[2] = 1.0  # all tied
+        logits[3, 77] = float("nan")
+        logits[4 + k, 2] = 50.0  # EOS, unless suppressed
+        logits[9, 17] = 60.0  # suppressed when 17 is
+        mine = logits.clone()
+        df.greedy_commit(mine, sup, *ours, 0, 2)
+        df.greedy_commit_plain(logits, sup, *theirs, 0, 2)
+        torch.cuda.synchronize()
+        assert torch.equal(mine.isnan(), logits.isnan())
+        assert torch.equal(mine.nan_to_num(), logits.nan_to_num())
+        for a, b in zip(ours, theirs):
+            assert torch.equal(a, b)
+    assert df.greedy_commit.launches == before + 5
+    assert int(ours[3]) == 45
+    assert int(ours[2][3]) == 77 and int(ours[2][2]) == 0
+
+
+def test_fused_wrappers_raise_on_what_the_kernels_do_not_take(card):
+    """A CUDA tensor the kernels do not take raises; nothing falls back."""
+    from music2midi_tpu_torch.ops import decode_fused as df
+
+    for d in (130, 386, 1028):  # above 128 not a multiple of 4, or > 1024
+        x = torch.zeros(4, 1, d, device=card, dtype=torch.bfloat16)
+        w = torch.ones(d, device=card)
+        with pytest.raises(ValueError):
+            df.add_rms_norm(x, x.clone(), w, 1e-6)
+    with pytest.raises(ValueError):
+        df.gelu_mul(torch.zeros(8, 4, device=card).t())
+    logits = torch.zeros(4, _V, device=card)
+    tokens = torch.zeros(4, 9, dtype=torch.int64, device=card)
+    with pytest.raises(ValueError):
+        df.greedy_commit(logits, None, torch.zeros(4, dtype=torch.bool,
+                                                   device=card), tokens,
+                         tokens[:, 0], torch.zeros((), dtype=torch.int32,
+                                                   device=card), 0, 2)
+
+
+def test_captured_fused_loop_equals_eager_at_128_rows(card):
+    """The song's encoder output twice over (128 rows) decoded by the
+    captured loop (a capture, then a replay) and by its eager twin: tokens
+    and lengths equal; under replay the four wrappers count what the graph
+    holds, 6 x 5 + 2 a step (19 norms, 6 quantize-writes, 6 gelu_mul, 1
+    greedy_commit), and the ``decode`` span's ``fused_launches`` says the
+    same."""
+    import sys
+
+    from music2midi_tpu_torch import profiling
+    from music2midi_tpu_torch.infer import Music2MIDI
+    from music2midi_tpu_torch.infer.decode import (
+        generate_tokens,
+        generate_tokens_eager,
+        program_for,
+    )
+    from music2midi_tpu_torch.ops import decode_fused as df
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from chip_smoke import synthetic_song
+
+    engine = Music2MIDI.from_npz(RECORD, dtype=torch.bfloat16)
+    chunks = engine._chunk_waveform(synthetic_song(180.0, 16000, seed=7))
+    batch, cond = engine._pad_batch(chunks)
+    enc = engine._encoder(engine._log_mel(engine._device_wave(batch)), cond)
+    enc = torch.cat([enc, enc])[:128]
+    assert enc.shape[0] == 128
+    cfg, dcfg = engine.t5_config, engine._dcfg()._replace(max_length=300)
+    want_t, want_l = generate_tokens_eager(engine.model, enc, cfg, dcfg)
+    generate_tokens(engine.model, enc, cfg, dcfg)  # capture
+    graph = program_for(engine.model, enc, cfg, dcfg).graphs
+    (g,) = graph.values()
+    per_step = dict(zip(("add_rms_norm", "quantize_write_kv", "gelu_mul",
+                         "greedy_commit"), g.launches[-4:]))
+    assert per_step == {"add_rms_norm": 19, "quantize_write_kv": 6,
+                        "gelu_mul": 6, "greedy_commit": 1}
+    before = [w.launches for w in df.wrappers()]
+    profiling.clear_spans()
+    with profiling.recording():
+        got_t, got_l = generate_tokens(engine.model, enc, cfg, dcfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got_t, want_t) and torch.equal(got_l, want_l)
+    steps = int(want_l.max()) - 1
+    counted = [w.launches - b for w, b in zip(df.wrappers(), before)]
+    assert counted == [n * steps for n in per_step.values()]
+    (sp,) = [s for s in profiling.spans() if s["name"] == "decode"]
+    assert sp["attrs"]["fused_launches"] == 32 * steps
+    assert sp["attrs"]["steps"] == steps
